@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, bi-TAI serving at the TAI_gray configuration
-(gf=64, ks=51, num_block=5, gray 128x128, K=F=T=5) with random weights from a
-seed, through ``vfi_tpu_torch.api.VideoInpainter``.  Phases, one JSON line each:
+Drives the port's two paths at the TAI_gray configuration (gf=64, ks=51,
+num_block=5, gray 128x128, K=F=T=5) with random weights from a seed: bi-TAI
+serving through ``vfi_tpu_torch.api.VideoInpainter``, and the GAN training
+step (one G update, one D update; L2 + GDL + SN-GAN + TAI's intermediate
+losses, Adam) through ``vfi_tpu_torch.train.environments``.  Phases, one JSON
+line each:
 
-  1. device  — the card's name and count; fails without CUDA.
-  2. build   — compiles every CUDA kernel of the path from ``vfi_tpu_torch/ops/csrc``.
-  3. kernel  — each kernel against its plain PyTorch version on the card:
-               f32 (TF32 off) within 1e-4; bf16 within one bf16 ulp of each output
-               (<= 7.8e-3 where |out| < 2) of the f32 plain version on the same
-               bf16 inputs.
-  4. serve   — f32 forward on the golden inputs against the JAX golden
-               (``tests/torch_golden_tai_gray.npz``): max-abs <= 5e-3 and uint8
-               PSNR >= 45 dB; then uint8 requests in f32 and bf16, counting
-               2 sepconv launches per forward.
-  5. timing  — CUDA-event times of the kernel, its plain version and the
-               serving forward; a ``kernels`` line with each kernel's numbers.
+  1. device      — the card's name and count; fails without CUDA.
+  2. build       — compiles every CUDA kernel from ``vfi_tpu_torch/ops/csrc``,
+                   all nvcc processes at once.
+  3. kernel      — each kernel against its plain PyTorch version on the card:
+                   f32 (TF32 off) within 1e-4 * max(1, max|ref|); bf16 within
+                   one bf16 ulp of the f32 plain version on the same bf16
+                   inputs.
+  4. serve       — f32 forward on the golden inputs against the JAX golden
+                   (``tests/torch_golden_tai_gray.npz``): max-abs <= 5e-3 and
+                   uint8 PSNR >= 45 dB; then uint8 requests in f32 and bf16,
+                   counting 2 sepconv launches per forward.
+  5. train_golden — two f32 training steps at B=2 against the JAX training
+                   golden (``tests/torch_golden_train_tai_gray.npz``): loss
+                   terms within rel 1e-3, step-1 gradient projections within
+                   global-L2-relative 1e-3.
+  6. train_kernel_vs_plain — the G gradient through the adjoint kernels
+                   against the same gradient through the plain adjoints,
+                   global-L2-relative <= 1e-4.
+  7. train       — B=8 in bf16 mixed precision and in f32: finite loss terms,
+                   2 launches of each sepconv kernel per G update, ms per step
+                   (G and D updates apart) and peak device memory.
+  8. timing      — CUDA-event times of each kernel, its plain version and the
+                   serving forward; a ``kernels`` line with each kernel's numbers.
 
 Prints the card's name and power limit (nvidia-smi) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.  Any failed gate
@@ -27,6 +41,7 @@ exits non-zero before that line.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -38,14 +53,25 @@ import numpy as np
 import torch
 
 from vfi_tpu_torch.api import VideoInpainter
+from vfi_tpu_torch.models.registry import create_model
 from vfi_tpu_torch.ops import _kernels
 from vfi_tpu_torch.ops import sepconv as sepconv_ops
-from vfi_tpu_torch.utils.params import params_from_jax, random_jax_params
+from vfi_tpu_torch.train.environments import create_training_environment
+from vfi_tpu_torch.utils.config import TrainConfig
+from vfi_tpu_torch.utils.params import (disc_variables_from_jax, params_from_jax, random_jax_disc_variables,
+                                        random_jax_params)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_tai_gray.npz")
 # The golden run: the JAX TAIFillInModel on the CPU in f32 (tests/make_torch_golden.py).
 GOLDEN = dict(model_key="TAI_gray", param_seed=0, input_seed=1, B=1, K=5, F=5, T=5, H=128, W=128, C=1)
+TRAIN_GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_train_tai_gray.npz")
+# The training golden: vfi_tpu's TAIEnvironment on the CPU in f32, TrainConfig
+# defaults, two train_steps (tests/make_torch_train_golden.py).
+TRAIN_GOLDEN = dict(model_key="TAI_gray", param_seed=0, disc_seed=3, input_seed=4, proj_seed=5, B=2, K=5, T=5,
+                    F=5, H=128, W=128, C=1, steps=2)
+TERM_NAMES = ("G_Lp", "G_gdl", "G_GAN", "G_Lp_forward", "G_Lp_backward", "G_gdl_forward", "G_gdl_backward",
+              "G_loss", "D_fake", "D_real")
 
 # Data-sheet peaks (dense): bytes/s of device memory, flop/s for bf16 (tensor
 # cores) and f32 (CUDA cores).  Matched on the name torch reports.
@@ -65,6 +91,62 @@ def golden_inputs(cfg=GOLDEN):
     p = rng.uniform(-1, 1, shape).astype(np.float32)
     f = rng.uniform(-1, 1, (cfg["B"], cfg["F"]) + shape[2:]).astype(np.float32)
     return p, f
+
+
+def _random_like(tree, rng: np.random.RandomState):
+    """Standard normals shaped like a nested dict of arrays, drawn in sorted key order."""
+    return {k: _random_like(v, rng) if isinstance(v, dict) else rng.standard_normal(np.shape(v)).astype(np.float32)
+            for k, v in sorted(tree.items())}
+
+
+def train_golden_setup(cfg=TRAIN_GOLDEN):
+    """The training golden's inputs: (TrainConfig, flax G params, flax D
+    variables, targets [B, K+T+F, H, W, C], r_g, r_d).  r_g and r_d are
+    port-layout state dicts of projection vectors, one per parameter, drawn
+    in sorted flax-path order (G, then D) from ``RandomState(proj_seed)``."""
+    train_cfg = TrainConfig(K=cfg["K"], T=cfg["T"], F=cfg["F"])
+    g_params = random_jax_params(cfg["model_key"], cfg["param_seed"])
+    d_vars = random_jax_disc_variables(train_cfg, cfg["H"], cfg["W"], cfg["C"], cfg["disc_seed"])
+    shape = (cfg["B"], cfg["K"] + cfg["T"] + cfg["F"], cfg["H"], cfg["W"], cfg["C"])
+    targets = np.random.RandomState(cfg["input_seed"]).uniform(-1, 1, shape).astype(np.float32)
+    rng = np.random.RandomState(cfg["proj_seed"])
+    r_g = params_from_jax(_random_like(g_params, rng))
+    r_d = disc_variables_from_jax({"params": _random_like(d_vars["params"], rng)})
+    return train_cfg, g_params, d_vars, targets, r_g, r_d
+
+
+def grad_projections(grads, r) -> np.ndarray:
+    """<grad[k], r[k]> for every key of r, in its order, summed in float64."""
+    return np.array([float((grads[k].double() * r[k].to(grads[k].device).double()).sum()) for k in r])
+
+
+def _global_rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def check_train_golden(device: torch.device, cfg=TRAIN_GOLDEN):
+    """The port's f32 training steps on ``device`` against the JAX training
+    golden.  Returns (report, env, state, targets on the device)."""
+    golden = np.load(TRAIN_GOLDEN_PATH)
+    meta_ok = all(str(golden[k]) == str(v) for k, v in cfg.items())
+    train_cfg, g_params, d_vars, targets, r_g, r_d = train_golden_setup(cfg)
+    K, T, F = cfg["K"], cfg["T"], cfg["F"]
+    env = create_training_environment(create_model(cfg["model_key"]), train_cfg)
+    state = env.init_state((cfg["H"], cfg["W"]), g_params=g_params, d_variables=d_vars, device=device)
+    terms = []
+    for step in range(cfg["steps"]):
+        state, m = env.train_step(state, K, T, F, targets)
+        terms.append([float(m[n]) for n in golden["term_names"]])
+        if step == 0:
+            g_proj = grad_projections({n: p.grad for n, p in state.generator.named_parameters()}, r_g)
+            d_proj = grad_projections({n: p.grad for n, p in state.discriminator.named_parameters()}, r_d)
+    terms_rel = np.abs(np.array(terms) - golden["terms"]) / np.maximum(np.abs(golden["terms"]), 1e-12)
+    report = dict(meta_ok=meta_ok, terms_max_rel=float(terms_rel.max()),
+                  worst_term=str(golden["term_names"][terms_rel.max(axis=0).argmax()]),
+                  g_proj_rel=_global_rel(g_proj, golden["g_proj"]), d_proj_rel=_global_rel(d_proj, golden["d_proj"]))
+    report["ok"] = bool(meta_ok and report["terms_max_rel"] <= 1e-3 and report["g_proj_rel"] <= 1e-3
+                        and report["d_proj_rel"] <= 1e-3)
+    return report, env, state, torch.as_tensor(targets, device=device)
 
 
 def emit(phase: str, **kw) -> None:
@@ -119,15 +201,105 @@ def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
-def sepconv_bound_ms(x, v, h, peak):
+def _bound(nbytes: int, ops: int, dtype, peak):
     bw, flops_bf16, flops_f32 = peak
+    t_bytes = nbytes / bw * 1e3
+    t_ops = ops / (flops_bf16 if dtype == torch.bfloat16 else flops_f32) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sepconv_bound_ms(x, v, h, peak):
+    """Reads x, v, h and writes out once; 2*ks*(ks+1) flops per output pixel
+    and channel (the separable form: ks+1 multiply-adds per tap row)."""
     B, H, W, ks = v.shape
     C = x.shape[-1]
     nbytes = (x.numel() + v.numel() + h.numel() + B * H * W * C) * x.element_size()
-    ops = 2 * ks * (ks + 1) * B * H * W * C  # separable form: ks+1 multiply-adds per tap row
-    t_bytes = nbytes / bw * 1e3
-    t_ops = ops / (flops_bf16 if x.dtype == torch.bfloat16 else flops_f32) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(nbytes, 2 * ks * (ks + 1) * B * H * W * C, x.dtype, peak)
+
+
+def sepconv_bwd_vh_bound_ms(x, v, h, g, peak):
+    """Reads x, v, h, g and writes grad_v, grad_h once.  Per output pixel and
+    channel, 4*ks*(ks+1) flops: the horizontal pass sum_j x*h and the vertical
+    pass sum_f v*x (ks^2 multiply-adds each) and the products of their ks
+    sums with g (2*ks multiply-adds)."""
+    B, H, W, ks = v.shape
+    C = x.shape[-1]
+    nbytes = (x.numel() + 2 * v.numel() + 2 * h.numel() + g.numel()) * x.element_size()
+    return _bound(nbytes, 4 * ks * (ks + 1) * B * H * W * C, x.dtype, peak)
+
+
+def sepconv_bwd_x_bound_ms(v, h, g, peak):
+    """Reads v, h, g and writes grad_x once.  Per output pixel and channel,
+    ks*(2*ks+1) flops: g*v[f] (ks multiplies), then (g*v[f])*h[j] added into
+    grad_x for every (f, j) (ks^2 multiply-adds)."""
+    B, H, W, ks = v.shape
+    C = g.shape[-1]
+    nbytes = (v.numel() + h.numel() + g.numel() + B * (H + ks - 1) * (W + ks - 1) * C) * g.element_size()
+    return _bound(nbytes, ks * (2 * ks + 1) * B * H * W * C, g.dtype, peak)
+
+
+def _adjoint_cases(BT, H, W, C, ks, dtype, gen, expand_g=False):
+    """Operands of the two adjoints: x, v, h as for the forward; g in [-1, 1]
+    for f32, in [0, 1] for bf16 (no cancellation, so a bf16 ulp of every
+    output is meaningful); with ``expand_g`` one value per image expanded to
+    [B, H, W, C] with stride 0, as a sum's cotangent arrives."""
+    x, v, h = sepconv_operands(BT, H, W, C, ks, dtype, gen)
+    lo = -1.0 if dtype == torch.float32 else 0.0
+    if expand_g:
+        g = (torch.rand(BT, 1, 1, 1, device="cuda", generator=gen) * (1 - lo) + lo).expand(BT, H, W, C)
+    else:
+        g = torch.rand(BT, H, W, C, device="cuda", generator=gen) * (1 - lo) + lo
+    return x, v, h, g.to(dtype)
+
+
+def _bf16_gate(got, want) -> tuple[float, float]:
+    diff = (got.float() - want).abs()
+    return float(diff.max()), float((diff / bf16_ulp(want)).max())
+
+
+def phase_adjoint_checks(gen) -> dict:
+    """Both adjoint kernels against the plain adjoints on the card; returns
+    each kernel's f32 max error at the main-path shape."""
+    main_err = {}
+    cases = [  # (B*T, H, W, C, ks, expand_g)
+        (40, 128, 128, 1, KS, False),  # TAI_gray training, B=8: 2 calls per G step
+        (4, 256, 320, 3, KS, False),  # TAI_color at 256x320
+        (3, 37, 45, 3, 4, True),  # ragged, even ks, stride-0 cotangent
+    ]
+    for BT, H, W, C, ks, expand_g in cases:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x, v, h, g = _adjoint_cases(BT, H, W, C, ks, dtype, gen, expand_g)
+            wide = [t.float() for t in (x, v, h, g)]
+            got_v, got_h = sepconv_ops.sepconv_bwd_vh_cuda(x, v, h, g)
+            got_x = sepconv_ops.sepconv_bwd_x_cuda(v, h, g)
+            torch.cuda.synchronize()
+            gate(got_v.stride() == v.stride() and got_h.stride() == h.stride(),
+                 f"adjoint gradients not laid out like v, h: {got_v.stride()} vs {v.stride()}")
+            want_v, want_h = sepconv_ops.sepconv_bwd_vh_plain(*wide)
+            want_x = sepconv_ops.sepconv_bwd_x_plain(*wide[1:])
+            for name, got, want in (("grad_v", got_v, want_v), ("grad_h", got_h, want_h), ("grad_x", got_x, want_x)):
+                kernel = "sepconv_bwd_x" if name == "grad_x" else "sepconv_bwd_vh"
+                ref_max = float(want.abs().max())
+                if dtype == torch.float32:
+                    err = float((got - want).abs().max())
+                    errs[(kernel, name, "f32_max_abs")] = err
+                    gate(err <= 1e-4 * max(1.0, ref_max),
+                         f"{kernel} {name} f32 {BT, H, W, C, ks}: max_abs {err} > 1e-4 * max(1, {ref_max})")
+                else:
+                    err, ulps = _bf16_gate(got, want)
+                    errs[(kernel, name, "bf16_max_abs")] = err
+                    errs[(kernel, name, "bf16_max_ulps")] = ulps
+                    gate(ulps <= 1.0, f"{kernel} {name} bf16 {BT, H, W, C, ks}: {ulps} bf16 ulps off")
+                errs[(kernel, name, "ref_max_abs")] = ref_max
+            del x, v, h, g, wide, got_v, got_h, got_x, want_v, want_h, want_x
+            torch.cuda.empty_cache()
+        for kernel in ("sepconv_bwd_vh", "sepconv_bwd_x"):
+            emit("kernel", kernel=kernel, shape=[BT, H, W, C, ks], g_stride0=expand_g,
+                 **{f"{n}_{m}": e for (k, n, m), e in errs.items() if k == kernel})
+            if (BT, H, W, C) == (40, 128, 128, 1):
+                main_err[kernel] = max(e for (k, n, m), e in errs.items() if k == kernel and m == "f32_max_abs")
+    return main_err
 
 
 def phase_kernel_checks(gen) -> float:
@@ -189,7 +361,7 @@ def phase_serve(state):
     requests = [(rng.randint(0, 256, (B, K, H, W, 3), np.uint8), rng.randint(0, 256, (B, K, H, W, 3), np.uint8))
                 for _ in range(2)]
     n_forwards = 0
-    sepconv_ops.sepconv_fwd_launches = 0
+    _reset_launch_counts()
     outs = {}
     for name, ip in (("float32", ip32), ("bfloat16", ip16)):
         outs[name] = []
@@ -211,14 +383,126 @@ def phase_serve(state):
     return launches
 
 
-def phase_timing(state, peak, main_err: float, launches: int, gen):
+def _launch_counts() -> dict:
+    return {k: getattr(sepconv_ops, f"{k}_launches") for k in ("sepconv_fwd", "sepconv_bwd_vh", "sepconv_bwd_x")}
+
+
+def _reset_launch_counts() -> None:
+    for k in ("sepconv_fwd", "sepconv_bwd_vh", "sepconv_bwd_x"):
+        setattr(sepconv_ops, f"{k}_launches", 0)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside (timings of a kernel alone) leave the counts as they were."""
+    saved = _launch_counts()
+    try:
+        yield
+    finally:
+        for k, n in saved.items():
+            setattr(sepconv_ops, f"{k}_launches", n)
+
+
+def phase_train_golden():
+    """Two f32 training steps at B=2 against the JAX golden (TF32 off)."""
+    report, env, state, targets = check_train_golden(torch.device("cuda"))
+    emit("train_golden", dtype="float32", tf32=False, batch=TRAIN_GOLDEN["B"], **report)
+    gate(report["meta_ok"], "training golden fixture does not match TRAIN_GOLDEN")
+    gate(report["terms_max_rel"] <= 1e-3, f"loss term {report['worst_term']} off the golden by rel "
+                                          f"{report['terms_max_rel']} > 1e-3")
+    gate(report["g_proj_rel"] <= 1e-3, f"G gradient projections off the golden by {report['g_proj_rel']} > 1e-3")
+    gate(report["d_proj_rel"] <= 1e-3, f"D gradient projections off the golden by {report['d_proj_rel']} > 1e-3")
+    return env, state, targets
+
+
+def phase_train_kernel_vs_plain(env, state, targets) -> None:
+    """The G gradient on the path through the adjoint kernels against the same
+    gradient with the plain adjoints put in their place (for this check only)."""
+    K, T, F = TRAIN_GOLDEN["K"], TRAIN_GOLDEN["T"], TRAIN_GOLDEN["F"]
+    params = list(state.generator.parameters())
+    grads = {}
+    kernels = (sepconv_ops.sepconv_bwd_vh_cuda, sepconv_ops.sepconv_bwd_x_cuda)
+    for route in ("kernels", "plain"):
+        before = _launch_counts()
+        if route == "plain":
+            sepconv_ops.sepconv_bwd_vh_cuda = sepconv_ops.sepconv_bwd_vh_plain
+            sepconv_ops.sepconv_bwd_x_cuda = sepconv_ops.sepconv_bwd_x_plain
+        try:
+            loss, _ = env._g_loss(state, K, T, F, targets)
+            grads[route] = torch.autograd.grad(loss, params, allow_unused=True)
+        finally:
+            sepconv_ops.sepconv_bwd_vh_cuda, sepconv_ops.sepconv_bwd_x_cuda = kernels
+        after = _launch_counts()
+        adjoint_launches = sum(after[k] - before[k] for k in ("sepconv_bwd_vh", "sepconv_bwd_x"))
+        gate(adjoint_launches == (4 if route == "kernels" else 0),
+             f"{route} route launched the adjoint kernels {adjoint_launches} times")
+    num = sum(float(((a - b).double() ** 2).sum()) for a, b in zip(grads["kernels"], grads["plain"]) if a is not None)
+    den = sum(float((b.double() ** 2).sum()) for b in grads["plain"] if b is not None)
+    err = (num / den) ** 0.5
+    emit("train_kernel_vs_plain", dtype="float32", batch=TRAIN_GOLDEN["B"], g_grad_global_rel=err)
+    gate(err <= 1e-4, f"G gradient through the kernels off the plain adjoints by {err} > 1e-4")
+
+
+def phase_train(gen) -> dict:
+    """The training path at full width, B=8, bf16 mixed precision then f32:
+    3 warm-up steps, 5 timed steps, 3 steps with the G and D updates timed
+    apart.  Returns each kernel's launches in this path's run."""
+    B, K, T, F = 8, 5, 5, 5
+    H = W = 128
+    params = random_jax_params("TAI_gray", 0)
+    n_g_updates = 0
+    _reset_launch_counts()
+    for dtype in ("bfloat16", "float32"):
+        cfg = TrainConfig(K=K, T=T, F=F, train_dtype=dtype)
+        env = create_training_environment(create_model("TAI_gray"), cfg)
+        targets = torch.rand(B, K + T + F, H, W, 1, device="cuda", generator=gen) * 2 - 1
+        state = env.init_state((H, W), g_params=params, device="cuda", seed=1)
+        terms = []
+        for _ in range(3):
+            state, m = env.train_step(state, K, T, F, targets)
+            terms.append(m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, m = env.train_step(state, K, T, F, targets)
+            terms.append(m)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        g_ms, d_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred, m = env._g_update(state, K, T, F, targets)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m.update(env._d_update(state, pred, K, T, F, targets))
+            torch.cuda.synchronize()
+            g_ms.append((t1 - t0) * 1e3)
+            d_ms.append((time.perf_counter() - t1) * 1e3)
+            terms.append(m)
+        n_g_updates += 11
+        last = {k: float(v) for k, v in terms[-1].items()}
+        finite = all(math.isfinite(float(v)) for m in terms for v in m.values())
+        emit("train", dtype=dtype, batch=B, K=K, T=T, F=F, tf32=False, ms_per_step=step_ms,
+             g_update_ms=sorted(g_ms)[1], d_update_ms=sorted(d_ms)[1], g_update_ms_all=g_ms, d_update_ms_all=d_ms,
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), steps=state.step, last_terms=last)
+        gate(finite, f"non-finite loss terms in {dtype} training")
+        del env, state, targets, terms
+        torch.cuda.empty_cache()
+    launches = _launch_counts()
+    emit("train_launches", g_updates=n_g_updates, **launches)
+    for k, n in launches.items():
+        gate(n == 2 * n_g_updates, f"{k} launched {n} times in {n_g_updates} G updates (want 2 per update)")
+    return launches
+
+
+def phase_timing(state, peak, main_err: float, adj_err: dict, serve_launches: int, train_launches: dict, gen):
     BT, H, W, C = 320, 128, 128, 1
     kern = {}
     for dtype in (torch.bfloat16, torch.float32):
         x, v, h = sepconv_operands(BT, H, W, C, KS, dtype, gen)
-        saved = sepconv_ops.sepconv_fwd_launches
-        ms = cuda_ms(lambda: sepconv_ops.sepconv_fwd_cuda(x, v, h), iters=10)
-        sepconv_ops.sepconv_fwd_launches = saved
+        with uncounted():
+            ms = cuda_ms(lambda: sepconv_ops.sepconv_fwd_cuda(x, v, h), iters=10)
         plain_ms = cuda_ms(lambda: sepconv_ops.sepconv_banded(x, v, h), iters=3, warmup=1)
         bound, by = sepconv_bound_ms(x, v, h, peak)
         kern[dtype] = (ms, plain_ms, bound, by)
@@ -242,15 +526,48 @@ def phase_timing(state, peak, main_err: float, launches: int, gen):
         del ip
         torch.cuda.empty_cache()
 
+    adj = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, v, h, g = _adjoint_cases(40, H, W, C, KS, dtype, gen)
+        runs = {
+            "sepconv_bwd_vh": (lambda: sepconv_ops.sepconv_bwd_vh_cuda(x, v, h, g),
+                               lambda: sepconv_ops.sepconv_bwd_vh_plain(x, v, h, g),
+                               sepconv_bwd_vh_bound_ms(x, v, h, g, peak)),
+            "sepconv_bwd_x": (lambda: sepconv_ops.sepconv_bwd_x_cuda(v, h, g),
+                              lambda: sepconv_ops.sepconv_bwd_x_plain(v, h, g),
+                              sepconv_bwd_x_bound_ms(v, h, g, peak)),
+        }
+        for name, (kernel, plain, (bound, by)) in runs.items():
+            with uncounted():
+                ms = cuda_ms(kernel, iters=10)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            adj[name, dtype] = (ms, plain_ms, bound, by)
+            emit("timing_kernel", kernel=name, dtype=str(dtype), shape=[40, H, W, C, KS], ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound, bound_by=by, achieved_over_bound=bound / ms)
+        del x, v, h, g, runs
+        torch.cuda.empty_cache()
+
     ms16, plain16, bound16, by16 = kern[torch.bfloat16]
     ms32, plain32, bound32, by32 = kern[torch.float32]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "sepconv_fwd", "route": "cuda", "source": "vfi_tpu_torch/ops/csrc/sepconv_fwd.cu",
-        "replaces": "vfi_tpu/ops/sepconv.py:468", "launches": launches, "max_abs_err": main_err,
+        "replaces": "vfi_tpu/ops/sepconv.py:468", "launches": train_launches["sepconv_fwd"],
+        "launches_serve": serve_launches, "max_abs_err": main_err,
         "ms": ms16, "plain_ms": plain16, "bound_ms": bound16, "bound_by": by16, "library_ms": None,
         "shape": [BT, H, W, C, KS], "dtype": "bfloat16",
         "ms_f32": ms32, "plain_ms_f32": plain32, "bound_ms_f32": bound32, "bound_by_f32": by32,
-    }]}), flush=True)
+    }]
+    for name, line in (("sepconv_bwd_vh", 608), ("sepconv_bwd_x", 729)):
+        ms16, plain16, bound16, by16 = adj[name, torch.bfloat16]
+        ms32, plain32, bound32, by32 = adj[name, torch.float32]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"vfi_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": f"vfi_tpu/ops/sepconv.py:{line}", "launches": train_launches[name],
+            "max_abs_err": adj_err[name], "ms": ms16, "plain_ms": plain16, "bound_ms": bound16, "bound_by": by16,
+            "library_ms": None, "shape": [40, H, W, C, KS], "dtype": "bfloat16",
+            "ms_f32": ms32, "plain_ms_f32": plain32, "bound_ms_f32": bound32, "bound_by_f32": by32,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
 
 
 def main() -> int:
@@ -268,15 +585,21 @@ def main() -> int:
 
     t0 = time.perf_counter()
     seconds = _kernels.build_all()
-    ptxas = [ln.strip() for ln in _kernels.build_log("sepconv_fwd").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {n: [ln.strip() for ln in _kernels.build_log(n).splitlines() if "registers" in ln or "spill" in ln]
+             for n in _kernels.SOURCES}
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0, ptxas=ptxas)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = phase_kernel_checks(gen)
+    adj_err = phase_adjoint_checks(gen)
     state = params_from_jax(random_jax_params(GOLDEN["model_key"], GOLDEN["param_seed"]))
-    launches = phase_serve(state)
-    phase_timing(state, peak, main_err, launches, gen)
+    serve_launches = phase_serve(state)
+    env, tstate, targets = phase_train_golden()
+    phase_train_kernel_vs_plain(env, tstate, targets)
+    del env, tstate, targets
+    torch.cuda.empty_cache()
+    train_launches = phase_train(gen)
+    phase_timing(state, peak, main_err, adj_err, serve_launches, train_launches, gen)
 
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

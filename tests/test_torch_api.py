@@ -110,6 +110,26 @@ def test_chip_smoke_bound_at_the_main_path_shape():
             assert by == "bytes" and ms == pytest.approx(want, rel=1e-3)
 
 
+def test_chip_smoke_adjoint_bounds_at_the_training_shape():
+    """B*T=40 (B=8): bwd_vh moves x, g, v, h, grad_v and grad_h once (0.271 GB
+    in bf16), bwd_x moves v, h, g and grad_x once (0.138 GB); both above
+    their operation bounds (4*ks*(ks+1) and ks*(2*ks+1) flops per output
+    pixel, 0.104 and 0.051 ms on the f32 CUDA cores)."""
+    peak = chip_smoke.PEAKS["H100"]
+    with torch.device("meta"):
+        for dtype, want_vh, want_x in ((torch.bfloat16, 0.080965, 0.041056), (torch.float32, 0.16193, 0.082113)):
+            x = torch.empty(40, 178, 178, 1, dtype=dtype)
+            v = h = torch.empty(40, 128, 128, 51, dtype=dtype)
+            g = torch.empty(40, 128, 128, 1, dtype=dtype)
+            ms, by = chip_smoke.sepconv_bwd_vh_bound_ms(x, v, h, g, peak)
+            assert by == "bytes" and ms == pytest.approx(want_vh, rel=1e-4)
+            ms, by = chip_smoke.sepconv_bwd_x_bound_ms(v, h, g, peak)
+            assert by == "bytes" and ms == pytest.approx(want_x, rel=1e-4)
+        # the operation bounds alone, on the f32 CUDA cores
+        assert 4 * 51 * 52 * 40 * 128 * 128 / 67e12 * 1e3 == pytest.approx(0.10376, rel=1e-4)
+        assert 51 * 103 * 40 * 128 * 128 / 67e12 * 1e3 == pytest.approx(0.051382, rel=1e-4)
+
+
 def test_golden_fixture_matches_chip_smoke():
     z = np.load(chip_smoke.GOLDEN_PATH)
     cfg = chip_smoke.GOLDEN

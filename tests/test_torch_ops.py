@@ -133,6 +133,7 @@ def test_importing_the_kernel_loader_builds_nothing():
         "subprocess.Popen = boom\n"
         "ctypes.CDLL = boom\n"
         "import vfi_tpu_torch.ops._kernels as k, vfi_tpu_torch.ops.sepconv, vfi_tpu_torch.api\n"
+        "import vfi_tpu_torch.train.environments\n"
         "assert k._libs == {}\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -23,9 +23,38 @@ class Conv(nn.Conv2d):
         nn.init.zeros_(self.bias)
 
 
+class _MaxPool2TieSplit(torch.autograd.Function):
+    """``F.max_pool2d(x, 2)`` whose gradient splits a tie evenly among the tied
+    elements of a window (vfi_tpu's reduce-max gradient), where
+    ``F.max_pool2d`` routes it all to the first argmax.  The forward is
+    PyTorch's pooling kernel: reshape + ``amax`` gives the same gradient but
+    its forward is 3x slower on an H100 (PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = F.max_pool2d(x, 2)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        B, C, H, W = x.shape
+        # 1 where an element ties its window's max.  The count per window (<= 4)
+        # is 4x its 2x2 mean, exact in g's dtype; PyTorch's pooling kernel
+        # takes it faster than a reduction over the two size-2 axes.
+        tied = (x.reshape(B, C, H // 2, 2, W // 2, 2) == out[:, :, :, None, :, None]).to(g.dtype)
+        count = F.avg_pool2d(tied.reshape(B, C, H, W), 2) * 4
+        return (tied * (g / count)[:, :, :, None, :, None]).reshape(B, C, H, W)
+
+
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 / stride-2 max pool."""
-    return F.max_pool2d(x, 2)
+    """2x2 / stride-2 max pool.  Even extents split a tied window's gradient
+    evenly, as vfi_tpu does; odd extents keep ``F.max_pool2d``, as vfi_tpu
+    keeps its windowed pool there."""
+    if x.shape[-2] % 2 or x.shape[-1] % 2:
+        return F.max_pool2d(x, 2)
+    return _MaxPool2TieSplit.apply(x)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:

@@ -22,10 +22,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = {"sepconv_fwd": "sepconv_fwd.cu"}
+SOURCES = {
+    "sepconv_fwd": "sepconv_fwd.cu",
+    "sepconv_bwd_vh": "sepconv_bwd_vh.cu",
+    "sepconv_bwd_x": "sepconv_bwd_x.cu",
+}
+HEADERS = ("sepconv_common.cuh",)
 
-# The sepconv kernel is instantiated for 1..4 channels (one f32 accumulator
-# each in registers); ks up to 64 keeps its shared-memory tile (patch plus h)
+# The sepconv kernels are instantiated for 1..4 channels (one f32 accumulator
+# each in registers); ks up to 64 keeps each kernel's shared-memory tiles
 # within a block's 227 KB at C=4.
 SEPCONV_MAX_CHANNELS = 4
 SEPCONV_MAX_KS = 64
@@ -42,7 +47,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    src = b"".join((CSRC / f).read_bytes() for f in (SOURCES[name], *HEADERS))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -91,29 +96,32 @@ def _load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def _sepconv_lib() -> ctypes.CDLL:
-    lib = _load("sepconv_fwd")
-    if lib.sepconv_fwd.argtypes is None:
-        P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.sepconv_fwd.argtypes = [P] * 4 + [I64] * 16 + [I] * 6 + [P]
-        lib.sepconv_fwd.restype = I
-        lib.sepconv_error_string.argtypes = [I]
-        lib.sepconv_error_string.restype = ctypes.c_char_p
-    return lib
-
-
+# Each kernel's C entry takes its rank-4 tensors' pointers, then their
+# element strides, then B, H, W, C, ks, the dtype code and the stream.
+_N_TENSORS = {"sepconv_fwd": 4, "sepconv_bwd_vh": 6, "sepconv_bwd_x": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def sepconv_fwd(x, v, h, out, B: int, H: int, W: int, C: int, ks: int) -> None:
-    """Launch the sepconv forward on the current stream (operands already checked)."""
-    lib = _sepconv_lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.sepconv_fwd(
-        x.data_ptr(), v.data_ptr(), h.data_ptr(), out.data_ptr(),
-        *x.stride(), *v.stride(), *h.stride(), *out.stride(),
-        B, H, W, C, ks, _DTYPE_CODE[x.dtype], stream,
-    )
+def _entry(name: str):
+    lib = _load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        n = _N_TENSORS[name]
+        fn.argtypes = [P] * n + [I64] * (4 * n) + [I] * 6 + [P]
+        fn.restype = I
+        lib.sepconv_error_string.argtypes = [I]
+        lib.sepconv_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def launch(name: str, tensors, B: int, H: int, W: int, C: int, ks: int) -> None:
+    """Launch kernel ``name`` on the current stream over rank-4 ``tensors``
+    (inputs then outputs, already checked by the wrapper); raises on a
+    non-zero CUDA error."""
+    lib, fn = _entry(name)
+    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+    strides = [s for t in tensors for s in t.stride()]
+    rc = fn(*(t.data_ptr() for t in tensors), *strides, B, H, W, C, ks, _DTYPE_CODE[tensors[0].dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"sepconv_fwd launch failed: CUDA error {rc} "
-                           f"({lib.sepconv_error_string(rc).decode()})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({lib.sepconv_error_string(rc).decode()})")

@@ -29,23 +29,17 @@
 // tensor-core banded design (S built in shared memory, wgmma) is the next
 // kernel's work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sepconv_common.cuh"
 
 namespace {
+
+using sepconv::Strides;
+using sepconv::store;
+using sepconv::to_float;
 
 constexpr int TILE_W = 32;  // one warp per tile row: coalesced loads, no bank conflicts
 constexpr int TILE_H = 8;
 constexpr int THREADS = TILE_W * TILE_H;
-
-struct Strides {  // element strides of a rank-4 operand
-  long long b, y, x, last;
-};
-
-__device__ __forceinline__ float to_float(float a) { return a; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 a) { return __bfloat162float(a); }
-__device__ __forceinline__ void store(float* p, float a) { *p = a; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float a) { *p = __float2bfloat16(a); }
 
 template <typename T, int C>
 __global__ void __launch_bounds__(THREADS)
@@ -126,36 +120,20 @@ sepconv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ v, const T* __
   for (int c = 0; c < C; ++c) store(op + c * so.last, acc[c]);
 }
 
-template <typename T, int C>
-cudaError_t launch(const void* x, const void* v, const void* h, void* out, Strides sx, Strides sv,
-                   Strides sh, Strides so, int B, int H, int W, int ks, cudaStream_t stream) {
-  const int tiles_x = (W + TILE_W - 1) / TILE_W;
-  const int tiles_y = (H + TILE_H - 1) / TILE_H;
-  const size_t smem =
-      sizeof(float) * (size_t(C) * (TILE_H + ks - 1) * (TILE_W + ks - 1) + size_t(ks) * THREADS);
-  cudaError_t err = cudaFuncSetAttribute(sepconv_fwd_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * tiles_x * tiles_y;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  sepconv_fwd_kernel<T, C><<<unsigned(blocks), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(v), static_cast<const T*>(h),
-      static_cast<T*>(out), sx, sv, sh, so, H, W, ks, tiles_x, tiles_y);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_c(const void* x, const void* v, const void* h, void* out, Strides sx,
-                       Strides sv, Strides sh, Strides so, int B, int H, int W, int C, int ks,
-                       cudaStream_t s) {
-  switch (C) {
-    case 1: return launch<T, 1>(x, v, h, out, sx, sv, sh, so, B, H, W, ks, s);
-    case 2: return launch<T, 2>(x, v, h, out, sx, sv, sh, so, B, H, W, ks, s);
-    case 3: return launch<T, 3>(x, v, h, out, sx, sv, sh, so, B, H, W, ks, s);
-    case 4: return launch<T, 4>(x, v, h, out, sx, sv, sh, so, B, H, W, ks, s);
-    default: return cudaErrorInvalidValue;
+struct Fwd {
+  template <typename T, int C>
+  static cudaError_t run(const void* x, const void* v, const void* h, void* out, Strides sx, Strides sv,
+                         Strides sh, Strides so, int B, int H, int W, int ks, cudaStream_t stream) {
+    const int tiles_x = (W + TILE_W - 1) / TILE_W;
+    const int tiles_y = (H + TILE_H - 1) / TILE_H;
+    const size_t smem =
+        sizeof(float) * (size_t(C) * (TILE_H + ks - 1) * (TILE_W + ks - 1) + size_t(ks) * THREADS);
+    return sepconv::launch_kernel(sepconv_fwd_kernel<T, C>, (long long)B * tiles_x * tiles_y, THREADS, smem,
+                                  stream, static_cast<const T*>(x), static_cast<const T*>(v),
+                                  static_cast<const T*>(h), static_cast<T*>(out), sx, sv, sh, so, H, W, ks,
+                                  tiles_x, tiles_y);
   }
-}
+};
 
 }  // namespace
 
@@ -168,15 +146,8 @@ extern "C" int sepconv_fwd(const void* x, const void* v, const void* h, void* ou
                            int B, int H, int W, int C, int ks, int dtype, void* stream) {
   const Strides sx{sxb, sxy, sxx, sxc}, sv{svb, svy, svx, svf};
   const Strides sh{shb, shy, shx, shf}, so{sob, soy, sox, soc};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_c<float>(x, v, h, out, sx, sv, sh, so, B, H, W, C, ks, s);
-  else if (dtype == 1)
-    err = dispatch_c<__nv_bfloat16>(x, v, h, out, sx, sv, sh, so, B, H, W, C, ks, s);
-  else
-    err = cudaErrorInvalidValue;
-  return int(err);
+  return int(sepconv::dispatch<Fwd>(dtype, C, x, v, h, out, sx, sv, sh, so, B, H, W, ks,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* sepconv_error_string(int code) {

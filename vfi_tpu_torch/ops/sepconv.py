@@ -10,16 +10,22 @@ Operands keep vfi_tpu's layouts: ``x`` is the pre-padded input
 are accepted, so a kernel head's NCHW output permuted to ``[B, H, W, ks]``
 goes in without a copy.
 
-Implementations:
+Implementations, each a plain PyTorch version beside a hand-written CUDA
+kernel (``csrc/``) that is held against it:
 
-  * :func:`sepconv_direct` — O(ks^2) elementwise accumulation; the spec.
-  * :func:`sepconv_banded` — the horizontal pass as a batched matmul against
-    the banded matrix ``S[b, y, x, u] = h[b, y, x, u-x]``; the CPU path and
-    the plain version the CUDA kernel is held against.
-  * :func:`sepconv_fwd_cuda` — the hand-written CUDA kernel
-    (``csrc/sepconv_fwd.cu``), the path for CUDA tensors.
+  * forward: :func:`sepconv_direct` (O(ks^2) accumulation, the spec) and
+    :func:`sepconv_banded` (the horizontal pass as a matmul against the
+    banded matrix ``S[b, y, x, u] = h[b, y, x, u-x]``);
+    :func:`sepconv_fwd_cuda` (``sepconv_fwd.cu``).
+  * adjoint for the kernels: :func:`sepconv_bwd_vh_plain`;
+    :func:`sepconv_bwd_vh_cuda` (``sepconv_bwd_vh.cu``).
+  * adjoint for the input: :func:`sepconv_bwd_x_plain`;
+    :func:`sepconv_bwd_x_cuda` (``sepconv_bwd_x.cu``).
 
-:func:`sepconv` dispatches on the operands' device.
+:func:`sepconv` goes through :class:`SepConv`, which takes the plain versions
+for CPU tensors and the kernels for CUDA tensors, forward and backward.
+The plain versions compute in float32 (float64 stays float64) and return the
+operands' dtype.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-# Launches of the CUDA forward kernel; incremented by sepconv_fwd_cuda only.
+# Launches of each CUDA kernel; each is incremented by its wrapper only.
 sepconv_fwd_launches = 0
+sepconv_bwd_vh_launches = 0
+sepconv_bwd_x_launches = 0
 
 
 def _check_shapes(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> tuple[int, int, int, int, int]:
@@ -50,6 +58,27 @@ def _check_shapes(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> tuple[in
     return B, H, W, C, ks
 
 
+def _check_cotangent(g: torch.Tensor, B: int, H: int, W: int, C: int) -> None:
+    if tuple(g.shape) != (B, H, W, C):
+        raise ValueError(f"cotangent must be [B, H, W, C] = [{B}, {H}, {W}, {C}]; got {tuple(g.shape)}")
+
+
+def _check_adjoint_shapes(v: torch.Tensor, h: torch.Tensor, g: torch.Tensor) -> tuple[int, int, int, int, int]:
+    """Validate the operands of the input adjoint; returns (B, H, W, C, ks)."""
+    if v.ndim != 4 or g.ndim != 4 or tuple(h.shape) != tuple(v.shape):
+        raise ValueError(f"sepconv's input adjoint expects v, h [B,H,W,ks] and g [B,H,W,C]; "
+                         f"got v{tuple(v.shape)} h{tuple(h.shape)} g{tuple(g.shape)}")
+    B, H, W, ks = v.shape
+    C = g.shape[-1]
+    _check_cotangent(g, B, H, W, C)
+    return B, H, W, C, ks
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """At least float32 (float64 stays float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def pad_for_sepconv(x: torch.Tensor, ks: int) -> torch.Tensor:
     """Replication-pad an NHWC image by floor(ks/2) per side (one more at the
     bottom and right for even ks), giving ``[B, H+ks-1, W+ks-1, C]``."""
@@ -62,8 +91,8 @@ def pad_for_sepconv(x: torch.Tensor, ks: int) -> torch.Tensor:
 def sepconv_direct(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Elementwise accumulation over the ks x ks taps, in float32."""
     B, H, W, C, ks = _check_shapes(x, v, h)
-    xf, vf, hf = x.float(), v.float(), h.float()
-    out = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device)
+    xf, vf, hf = _wide(x), _wide(v), _wide(h)
+    out = torch.zeros((B, H, W, C), dtype=xf.dtype, device=x.device)
     for fy in range(ks):
         rows = xf[:, fy : fy + H]  # [B, H, W+ks-1, C]
         inner = torch.zeros_like(out)
@@ -83,6 +112,19 @@ def _skew_rows(m: torch.Tensor) -> torch.Tensor:
     return flat.reshape(*lead, W, ks + W - 1)
 
 
+def _unskew_rows(m: torch.Tensor, ks: int) -> torch.Tensor:
+    """``[..., W, W+ks-1] -> [..., W, ks]`` with ``out[..., x, j] = m[..., x, x+j]``
+    (the inverse of :func:`_skew_rows` on the band), by gather."""
+    W = m.shape[-2]
+    idx = torch.arange(W, device=m.device)[:, None] + torch.arange(ks, device=m.device)
+    return m.gather(-1, idx.expand(*m.shape[:-1], ks))
+
+
+def _row_slabs(x: torch.Tensor, H: int, ks: int) -> torch.Tensor:
+    """``slabs[b, y, f, u, c] = x[b, y+f, u, c]``: ``[B, H, ks, W+ks-1, C]``."""
+    return torch.stack([x[:, f : f + H] for f in range(ks)], dim=2)
+
+
 def sepconv_banded(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Banded-matmul formulation, computed in float32:
 
@@ -90,12 +132,65 @@ def sepconv_banded(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.T
         out[b, y, x, c]       = sum_fy inner[b, y, fy, x, c] * v[b, y, x, fy]
     """
     B, H, W, C, ks = _check_shapes(x, v, h)
-    S = _skew_rows(h.float())  # [B, H, W, W+ks-1]
-    xf = x.float()
-    slabs = torch.stack([xf[:, fy : fy + H] for fy in range(ks)], dim=2)  # [B, H, ks, W+ks-1, C]
-    inner = torch.einsum("byfuc,byxu->byfxc", slabs, S)
-    out = torch.einsum("byfxc,byxf->byxc", inner, v.float())
+    inner = torch.einsum("byfuc,byxu->byfxc", _row_slabs(_wide(x), H, ks), _skew_rows(_wide(h)))
+    out = torch.einsum("byfxc,byxf->byxc", inner, _wide(v))
     return out.to(x.dtype)
+
+
+def sepconv_bwd_vh_plain(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor,
+                         g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Adjoints for the per-pixel kernels, summed over channels (banded form):
+
+        grad_v[b, y, x, f] = sum_c g[b, y, x, c] * sum_j x[b, y+f, x+j, c] * h[b, y, x, j]
+        grad_h[b, y, x, j] = sum_c g[b, y, x, c] * sum_f v[b, y, x, f] * x[b, y+f, x+j, c]
+
+    ``grad_v`` contracts the recomputed horizontal pass with g; ``grad_h``
+    unskews ``A[b, y, x, u] = sum_{f,c} g*v[b, y, x, f] * x[b, y+f, u, c]``.
+    """
+    B, H, W, C, ks = _check_shapes(x, v, h)
+    _check_cotangent(g, B, H, W, C)
+    slabs = _row_slabs(_wide(x), H, ks)
+    gw = _wide(g)
+    inner = torch.einsum("byfuc,byxu->byfxc", slabs, _skew_rows(_wide(h)))
+    grad_v = torch.einsum("byfxc,byxc->byxf", inner, gw)
+    gv = _wide(v)[..., :, None] * gw[..., None, :]  # [B, H, W, ks, C]
+    grad_h = _unskew_rows(torch.einsum("byfuc,byxfc->byxu", slabs, gv), ks)
+    return grad_v.to(v.dtype), grad_h.to(h.dtype)
+
+
+def sepconv_bwd_x_plain(v: torch.Tensor, h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Adjoint for the padded input (banded form):
+
+        grad_x[b, s, u, c] = sum_{f,j} g[b, s-f, u-j, c] * v[b, s-f, u-j, f] * h[b, s-f, u-j, j]
+
+    Per output row y, ``G[b, y, f, u, c] = sum_x g*v[b, y, x, f, c] * S[b, y, x, u]``;
+    the rows overlap-add into ``grad_x[b, y+f]`` in a loop over f.
+    """
+    B, H, W, C, ks = _check_adjoint_shapes(v, h, g)
+    gv = _wide(v)[..., :, None] * _wide(g)[..., None, :]  # [B, H, W, ks, C]
+    G = torch.einsum("byxfc,byxu->byfuc", gv, _skew_rows(_wide(h)))  # [B, H, ks, W+ks-1, C]
+    grad_x = torch.zeros((B, H + ks - 1, W + ks - 1, C), dtype=G.dtype, device=G.device)
+    for f in range(ks):
+        grad_x[:, f : f + H] += G[:, :, f]
+    return grad_x.to(g.dtype)
+
+
+def _check_kernel_operands(fn: str, C: int, ks: int, **tensors: torch.Tensor) -> None:
+    """What every CUDA wrapper checks before a launch; raises ValueError."""
+    from . import _kernels
+
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{fn} needs CUDA tensors; {name} is on {t.device}")
+    ts = list(tensors.values())
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{fn}: operands on different devices: {[str(t.device) for t in ts]}")
+    if ts[0].dtype not in (torch.float32, torch.bfloat16) or len({t.dtype for t in ts}) != 1:
+        raise ValueError(f"{fn} takes float32 or bfloat16 operands of one dtype; got {[t.dtype for t in ts]}")
+    if not 1 <= C <= _kernels.SEPCONV_MAX_CHANNELS:
+        raise ValueError(f"{fn} takes 1..{_kernels.SEPCONV_MAX_CHANNELS} channels; got C={C}")
+    if not 1 <= ks <= _kernels.SEPCONV_MAX_KS:
+        raise ValueError(f"{fn} takes 1 <= ks <= {_kernels.SEPCONV_MAX_KS}; got ks={ks}")
 
 
 def sepconv_fwd_cuda(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -107,39 +202,98 @@ def sepconv_fwd_cuda(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch
     global sepconv_fwd_launches
     from . import _kernels
 
-    for name, t in (("x", x), ("v", v), ("h", h)):
-        if t.device.type != "cuda":
-            raise ValueError(f"sepconv_fwd_cuda needs CUDA tensors; {name} is on {t.device}")
-    if not (x.device == v.device == h.device):
-        raise ValueError(f"operands on different devices: {x.device}, {v.device}, {h.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or not (x.dtype == v.dtype == h.dtype):
-        raise ValueError(f"sepconv_fwd_cuda takes float32 or bfloat16 operands of one dtype; "
-                         f"got {x.dtype}, {v.dtype}, {h.dtype}")
     B, H, W, C, ks = _check_shapes(x, v, h)
-    if not 1 <= C <= _kernels.SEPCONV_MAX_CHANNELS:
-        raise ValueError(f"sepconv_fwd_cuda takes 1..{_kernels.SEPCONV_MAX_CHANNELS} channels; got C={C}")
-    if not 1 <= ks <= _kernels.SEPCONV_MAX_KS:
-        raise ValueError(f"sepconv_fwd_cuda takes 1 <= ks <= {_kernels.SEPCONV_MAX_KS}; got ks={ks}")
+    _check_kernel_operands("sepconv_fwd_cuda", C, ks, x=x, v=v, h=h)
     out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        _kernels.sepconv_fwd(x, v, h, out, B, H, W, C, ks)
+        _kernels.launch("sepconv_fwd", (x, v, h, out), B, H, W, C, ks)
     sepconv_fwd_launches += 1
     return out
 
 
-def sepconv(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Adaptive separable convolution.
+def sepconv_bwd_vh_cuda(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor,
+                        g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel-adjoint kernel: (grad_v, grad_h), summed over channels.
 
-    CPU operands take :func:`sepconv_banded`; CUDA operands take the CUDA
-    kernel, which raises on what it cannot run.
+    Counterpart of vfi_tpu's Pallas kernel ``_sepconv_pallas_bwd_vh_raw``.
+    The gradients are allocated like v and h (same strides), so a permuted
+    view's backward needs no copy.  Raises on anything the kernel does not
+    take; never falls back.
+    """
+    global sepconv_bwd_vh_launches
+    from . import _kernels
+
+    B, H, W, C, ks = _check_shapes(x, v, h)
+    _check_cotangent(g, B, H, W, C)
+    _check_kernel_operands("sepconv_bwd_vh_cuda", C, ks, x=x, v=v, h=h, g=g)
+    grad_v, grad_h = torch.empty_like(v), torch.empty_like(h)
+    if grad_v.numel() == 0:
+        return grad_v, grad_h
+    with torch.cuda.device(x.device):
+        _kernels.launch("sepconv_bwd_vh", (x, v, h, g, grad_v, grad_h), B, H, W, C, ks)
+    sepconv_bwd_vh_launches += 1
+    return grad_v, grad_h
+
+
+def sepconv_bwd_x_cuda(v: torch.Tensor, h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA input-adjoint kernel: grad_x ``[B, H+ks-1, W+ks-1, C]``.
+
+    Counterpart of vfi_tpu's Pallas kernel ``_sepconv_pallas_bwd_x_raw``.
+    Raises on anything the kernel does not take; never falls back.
+    """
+    global sepconv_bwd_x_launches
+    from . import _kernels
+
+    B, H, W, C, ks = _check_adjoint_shapes(v, h, g)
+    _check_kernel_operands("sepconv_bwd_x_cuda", C, ks, v=v, h=h, g=g)
+    grad_x = torch.empty((B, H + ks - 1, W + ks - 1, C), dtype=g.dtype, device=g.device)
+    if v.numel() == 0:
+        return grad_x.zero_()
+    with torch.cuda.device(g.device):
+        _kernels.launch("sepconv_bwd_x", (v, h, g, grad_x), B, H, W, C, ks)
+    sepconv_bwd_x_launches += 1
+    return grad_x
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+class SepConv(torch.autograd.Function):
+    """sepconv with its adjoints: the plain versions on CPU tensors, the CUDA
+    kernels on CUDA tensors (which raise on what they cannot run)."""
+
+    @staticmethod
+    def forward(ctx, x, v, h):
+        ctx.save_for_backward(x, v, h)
+        if _on_cpu(x, v, h):
+            return sepconv_banded(x, v, h)
+        return sepconv_fwd_cuda(x, v, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, v, h = ctx.saved_tensors
+        need_x, need_v, need_h = ctx.needs_input_grad
+        cpu = _on_cpu(x, v, h, g)
+        grad_x = grad_v = grad_h = None
+        if need_v or need_h:
+            grad_v, grad_h = (sepconv_bwd_vh_plain if cpu else sepconv_bwd_vh_cuda)(x, v, h, g)
+        if need_x:
+            grad_x = (sepconv_bwd_x_plain if cpu else sepconv_bwd_x_cuda)(v, h, g)
+        return grad_x, grad_v if need_v else None, grad_h if need_h else None
+
+
+def sepconv(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Adaptive separable convolution, differentiable in all three operands.
+
+    CPU operands take the plain versions; CUDA operands take the CUDA
+    kernels, which raise on what they cannot run.
 
     :param x: pre-padded input ``[B, H+ks-1, W+ks-1, C]`` (:func:`pad_for_sepconv`)
     :param v: per-pixel vertical kernels ``[B, H, W, ks]``
     :param h: per-pixel horizontal kernels ``[B, H, W, ks]``
     :return: ``[B, H, W, C]`` in the input dtype
     """
-    if x.device.type == "cpu" and v.device.type == "cpu" and h.device.type == "cpu":
-        return sepconv_banded(x, v, h)
-    return sepconv_fwd_cuda(x, v, h)
+    return SepConv.apply(x, v, h)

@@ -1,0 +1,241 @@
+"""GAN training environments (counterpart of ``vfi_tpu/train/environments.py``).
+
+    env = create_training_environment(model, TrainConfig(K=5, T=5, F=5))
+    state = env.init_state((H, W))                    # on cuda
+    state, terms = env.train_step(state, K, T, F, targets)
+
+``targets`` are videos ``[B, K+T+F, H, W, C]`` in [-1, 1].  One step is one
+generator update then one discriminator update, as in vfi_tpu: the D update
+scores the generator's prediction from *before* its update, detached, and
+runs no second forward.  Unlike vfi_tpu's pure steps, ``train_step`` updates
+the state's modules and optimizers in place (no second copy of the weights
+or Adam moments) and returns the same state.
+
+Mixed precision (``cfg.train_dtype == "bfloat16"``) is vfi_tpu's explicit
+cast, not autocast: each network runs on bf16 copies of its f32 master
+parameters (``torch.func.functional_call``), so gradients arrive in f32 and
+the master weights and Adam state stay f32.  The generator's inputs are cast
+and its outputs cast back to f32 before the losses; in the G step the
+discriminator runs in f32 on the f32 prediction beside the bf16-rounded
+context frames; in the D step its parameters and all videos are bf16, while
+``u`` and the power iteration stay f32.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+
+from ..api import resolve_device
+from ..models.fill_in import TAIFillInModel
+from ..nn.discriminator import SNDiscriminator
+from ..ops.image import inverse_transform
+from ..utils.params import disc_variables_from_jax, params_from_jax
+from .losses import bce_with_logits, disc_window_labels, gdl_loss, l2_loss
+
+Terms = Dict[str, torch.Tensor]
+
+
+@dataclass
+class TrainState:
+    """The generator, the discriminator (its ``u`` buffers are vfi_tpu's
+    ``d_sn``), their Adam optimizers, and the number of steps taken."""
+
+    generator: nn.Module
+    discriminator: SNDiscriminator
+    g_opt: torch.optim.Adam
+    d_opt: torch.optim.Adam
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.generator.parameters()).device
+
+
+def split_batch(targets: torch.Tensor, K: int, T: int, F: int):
+    """targets [B, K+T+F, H, W, C] -> (preceding, middle, following)."""
+    return targets[:, :K], targets[:, K : K + T], targets[:, K + T : K + T + F]
+
+
+def _set_grads(module: nn.Module, loss: torch.Tensor) -> None:
+    """``.grad`` of every parameter of ``module`` (zeros where unused); no
+    other parameter's gradient is computed or touched."""
+    params = list(module.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    for p, g in zip(params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g
+
+
+class L2GDLDiscEnvironment:
+    """MSE + GDL + sliding-window SN-GAN training."""
+
+    min_K = 1
+    min_F = 1
+
+    def __init__(self, model: nn.Module, cfg):
+        self.model = model
+        self.cfg = cfg
+
+    # -- init ---------------------------------------------------------------
+    def init_state(self, image_size: Tuple[int, int], *, g_params=None, d_variables=None, device=None,
+                   seed: int = 0) -> TrainState:
+        """A fresh state for frames of ``image_size`` (H, W).
+
+        :param g_params: vfi_tpu generator ``params`` (flax layout); default:
+            a copy of the environment's model as it stands
+        :param d_variables: vfi_tpu discriminator ``{"params", "sn"}``;
+            default: the port's own init, drawn under ``seed``
+        :param device: ``cuda`` unless ``"cpu"`` is asked for
+        """
+        dev = resolve_device(device)
+        c = self.cfg
+        generator = copy.deepcopy(self.model)
+        if g_params is not None:
+            generator.load_state_dict(params_from_jax(g_params))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            discriminator = SNDiscriminator(c.disc_window_size, generator.c_dim, image_size, c.df_dim, c.Ip)
+        if d_variables is not None:
+            discriminator.load_state_dict(disc_variables_from_jax(d_variables))
+        generator.to(dev).train()
+        discriminator.to(dev).train()
+        return TrainState(generator, discriminator, self._adam(generator), self._adam(discriminator))
+
+    def _adam(self, module: nn.Module) -> torch.optim.Adam:
+        return torch.optim.Adam(module.parameters(), lr=self.cfg.lr, betas=(self.cfg.beta1, 0.999), eps=1e-8)
+
+    # -- mixed precision ------------------------------------------------------
+    def _compute_cast(self, tensors):
+        """bf16 copies of the float32 tensors (a dict or a tuple) when
+        ``cfg.train_dtype == "bfloat16"``; the same tensors otherwise.  The
+        cast is differentiable, so gradients reach the f32 masters."""
+        if self.cfg.train_dtype != "bfloat16":
+            return tensors
+
+        def cast(a):
+            return a.to(torch.bfloat16) if a.dtype == torch.float32 else a
+
+        if isinstance(tensors, dict):
+            return {k: cast(a) for k, a in tensors.items()}
+        return tuple(cast(a) for a in tensors)
+
+    def _cast_params(self, module: nn.Module) -> Dict[str, torch.Tensor]:
+        return self._compute_cast(dict(module.named_parameters()))
+
+    # -- generator loss ------------------------------------------------------
+    def _recon_terms(self, out, gt_middle) -> Terms:
+        pred01 = inverse_transform(out["pred"])
+        gt01 = inverse_transform(gt_middle)
+        return {"G_Lp": l2_loss(pred01, gt01), "G_gdl": gdl_loss(pred01, gt01)}
+
+    def _extra_recon_terms(self, out, gt_middle) -> Terms:
+        return {}
+
+    def _g_loss(self, state: TrainState, K: int, T: int, F: int, targets: torch.Tensor):
+        """(loss, (outputs, terms)); the discriminator runs with ``train=False``."""
+        p, m, f = split_batch(targets, K, T, F)
+        p, f = self._compute_cast((p, f))
+        out = functional_call(state.generator, self._cast_params(state.generator), (T, p, f))
+        out = {k: a.float() for k, a in out.items()}
+        terms = self._recon_terms(out, m)
+        extra = self._extra_recon_terms(out, m)
+
+        fake_video = torch.cat([p.float(), out["pred"], f.float()], dim=1)
+        logits = state.discriminator(fake_video, train=False)
+        terms["G_GAN"] = bce_with_logits(logits, torch.ones_like(logits))
+
+        c = self.cfg
+        loss = c.alpha * (terms["G_Lp"] + terms["G_gdl"] + sum(extra.values())) + c.beta * terms["G_GAN"]
+        terms.update(extra)
+        terms["G_loss"] = loss
+        return loss, (out, terms)
+
+    # -- discriminator loss --------------------------------------------------
+    def _d_loss(self, state: TrainState, pred: torch.Tensor, K: int, T: int, F: int, targets: torch.Tensor):
+        """(loss, terms).  Writes the SN state: fake scores with u0 and writes
+        u1, real scores with u1 and writes u2."""
+        disc = state.discriminator
+        params = self._cast_params(disc)
+        p, m, f = split_batch(targets, K, T, F)
+        p, m, f, pred = self._compute_cast((p, m, f, pred.detach()))
+        fake_video = torch.cat([p, pred, f], dim=1)
+        real_video = torch.cat([p, m, f], dim=1)
+
+        logits_fake = functional_call(disc, params, (fake_video,), {"train": True})
+        labels = disc_window_labels(K, T, F, self.cfg.disc_window_size, device=logits_fake.device)
+        loss_fake = bce_with_logits(logits_fake, labels.expand_as(logits_fake))
+
+        logits_real = functional_call(disc, params, (real_video,), {"train": True})
+        loss_real = bce_with_logits(logits_real, torch.ones_like(logits_real))
+        return loss_fake + loss_real, {"D_fake": loss_fake, "D_real": loss_real}
+
+    # -- the step ---------------------------------------------------------------
+    def _g_update(self, state: TrainState, K: int, T: int, F: int, targets: torch.Tensor) -> Tuple[torch.Tensor, Terms]:
+        """One Adam step of the generator; returns its prediction (detached) and the G terms."""
+        loss, (out, terms) = self._g_loss(state, K, T, F, targets)
+        _set_grads(state.generator, loss)
+        state.g_opt.step()
+        state.step += 1
+        return out["pred"].detach(), {k: v.detach() for k, v in terms.items()}
+
+    def _d_update(self, state: TrainState, pred: torch.Tensor, K: int, T: int, F: int,
+                  targets: torch.Tensor) -> Terms:
+        """One Adam step of the discriminator on ``pred``; returns the D terms."""
+        loss, terms = self._d_loss(state, pred, K, T, F, targets)
+        _set_grads(state.discriminator, loss)
+        state.d_opt.step()
+        return {k: v.detach().float() for k, v in terms.items()}
+
+    def train_step(self, state: TrainState, K: int, T: int, F: int, targets) -> Tuple[TrainState, Terms]:
+        """One G update followed by one D update, in place.
+
+        Leaves each parameter's ``.grad`` at this step's gradient; returns the
+        state and the loss terms (0-d float32 tensors on the device).
+        """
+        targets = torch.as_tensor(targets, dtype=torch.float32, device=state.device)
+        pred, terms = self._g_update(state, K, T, F, targets)
+        terms.update(self._d_update(state, pred, K, T, F, targets))
+        return state, terms
+
+    def sample_ktf(self, rng: np.random.RandomState, allow_random: bool):
+        c = self.cfg
+        if not allow_random:
+            return c.K, c.T, c.F
+        return (
+            rng.randint(self.min_K, c.K + 1),
+            rng.randint(1, c.T + 1),
+            rng.randint(self.min_F, c.F + 1),
+        )
+
+
+class TAIEnvironment(L2GDLDiscEnvironment):
+    """Adds the intermediate forward/backward reconstruction and GDL losses;
+    K, F >= 2 sampling."""
+
+    min_K = 2
+    min_F = 2
+
+    def _extra_recon_terms(self, out, gt_middle) -> Terms:
+        gt01 = inverse_transform(gt_middle)
+        fwd01 = inverse_transform(out["pred_forward"])
+        bwd01 = inverse_transform(out["pred_backward"])
+        return {
+            "G_Lp_forward": l2_loss(fwd01, gt01),
+            "G_Lp_backward": l2_loss(bwd01, gt01),
+            "G_gdl_forward": gdl_loss(fwd01, gt01),
+            "G_gdl_backward": gdl_loss(bwd01, gt01),
+        }
+
+
+def create_training_environment(model: nn.Module, cfg) -> L2GDLDiscEnvironment:
+    """The environment for a generator: TAI and TWI (a TAI subclass) train in
+    :class:`TAIEnvironment`; the other models are not ported yet."""
+    if isinstance(model, TAIFillInModel):
+        return TAIEnvironment(model, cfg)
+    raise TypeError(f"no training environment for model type {type(model).__name__}")
