@@ -71,9 +71,9 @@ class LayerTimer:
             self.handles.append(mod.register_forward_hook(lambda m, a, o, n=name: self._stop(n)))
         self._sepconv = kernelnet_mod.sepconv
 
-        def timed(*args):
+        def timed(*args, **kw):
             self._start("kernelnet.sepconv")
-            out = self._sepconv(*args)
+            out = self._sepconv(*args, **kw)
             self._stop("kernelnet.sepconv")
             return out
 
@@ -103,7 +103,7 @@ def forward_flops(B: int) -> dict[str, float]:
         model = create_model("TAI_gray")
         frames = torch.empty(B, K, H, W, 1)
     saved = kernelnet_mod.sepconv
-    kernelnet_mod.sepconv = lambda x, v, h: torch.empty(v.shape[:3] + x.shape[-1:], device="meta")
+    kernelnet_mod.sepconv = lambda x, v, h, impl=None: torch.empty(v.shape[:3] + x.shape[-1:], device="meta")
     try:
         counter = FlopCounterMode(display=False)
         with counter, torch.no_grad():

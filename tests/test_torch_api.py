@@ -17,6 +17,7 @@ from vfi_tpu import api as japi
 from vfi_tpu.models.fill_in import TAIFillInModel as JTAI
 from vfi_tpu_torch.api import VideoInpainter
 from vfi_tpu_torch.utils.params import params_from_jax, random_jax_params
+from . import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "vfi_tpu_torch")

@@ -13,6 +13,7 @@ from vfi_tpu_torch.nn.discriminator import SNDiscriminator
 from vfi_tpu_torch.train import losses as tlosses
 from vfi_tpu_torch.utils.config import TrainConfig
 from vfi_tpu_torch.utils.params import disc_variables_from_jax, random_jax_disc_variables
+from . import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 
 def test_losses_match_jax():

@@ -12,6 +12,7 @@ from vfi_tpu.models import registry as jregistry
 from vfi_tpu_torch.models import fill_in as tfill
 from vfi_tpu_torch.models.registry import create_model, model_keys
 from vfi_tpu_torch.utils.params import params_from_jax, random_jax_params
+from . import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 TOL = dict(atol=3e-4, rtol=1e-3)
 TOY = dict(gf_dim=8, feature_size=3, ks=5, kf_dim=4, layers=3)

@@ -13,6 +13,7 @@ from vfi_tpu.nn import mcnet as jmc
 from vfi_tpu_torch.models.registry import create_model
 from vfi_tpu_torch.nn import layers as tlayers
 from vfi_tpu_torch.utils.params import params_from_jax, random_jax_params
+from . import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 TOL = dict(atol=3e-4, rtol=1e-3)
 GF, KF, KS, LAYERS = 8, 4, 5, 3

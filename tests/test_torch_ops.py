@@ -14,6 +14,7 @@ import torch
 from vfi_tpu.ops import image as jimage
 from vfi_tpu_torch.ops import image as timage
 from vfi_tpu_torch.ops import sepconv as tsep
+from . import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 jsep = importlib.import_module("vfi_tpu.ops.sepconv")  # vfi_tpu.ops re-exports a function of that name
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

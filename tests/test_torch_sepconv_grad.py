@@ -14,6 +14,7 @@ import torch
 from vfi_tpu.nn import layers as jlayers
 from vfi_tpu_torch.nn import layers as tlayers
 from vfi_tpu_torch.ops import sepconv as tsep
+from . import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 jsep = importlib.import_module("vfi_tpu.ops.sepconv")  # vfi_tpu.ops re-exports a function of that name
 CASES = [(5, 8, 8, 1), (4, 8, 10, 3)]  # (ks, H, W, C)
@@ -80,12 +81,12 @@ def test_sepconv_function_computes_only_the_gradients_asked(monkeypatch):
         fn = getattr(tsep, name)
         monkeypatch.setattr(tsep, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
     v.requires_grad_()
-    (tsep.sepconv(x, v, h) * g).sum().backward()
+    (tsep.SepConv.apply(x, v, h) * g).sum().backward()
     assert calls == ["sepconv_bwd_vh_plain"] and v.grad is not None and x.grad is None
     calls.clear()
     x.requires_grad_()
     v.requires_grad_(False)
-    (tsep.sepconv(x, v, h) * g).sum().backward()
+    (tsep.SepConv.apply(x, v, h) * g).sum().backward()
     assert calls == ["sepconv_bwd_x_plain"] and x.grad is not None
     gv, _ = tsep.sepconv_bwd_vh_plain(x.detach(), v, h, g)
     np.testing.assert_array_equal(v.grad.numpy(), gv.numpy())

@@ -21,6 +21,7 @@ from vfi_tpu_torch.models.registry import create_model
 from vfi_tpu_torch.train.environments import TrainState, create_training_environment
 from vfi_tpu_torch.utils.config import TrainConfig
 from vfi_tpu_torch.utils.params import disc_variables_from_jax, params_from_jax, random_jax_disc_variables, random_jax_params
+from . import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 B, K, T, F, H, W = 2, 3, 2, 3, 32, 32
 TOY = dict(gf_dim=8, feature_size=3, ks=5, kf_dim=4, layers=3)
@@ -49,34 +50,35 @@ def _setup(c_dim, num_block, Ip, dtype):
     jenv = jenvs.create_training_environment(JTAI(**spec["kwargs"]), JTrainConfig(**cfg_kw))
     jenv.discriminator = JDisc(window_size=3, df_dim=8, Ip=Ip)
     gp, dp, dsn = (jax.tree.map(jnp.asarray, t) for t in (g_params, d_vars["params"], d_vars["sn"]))
-    jstate = jenvs.TrainState(step=jnp.zeros((), jnp.int32), g_params=gp, g_opt=jenv.g_tx().init(gp),
-                              d_params=dp, d_sn=dsn, d_opt=jenv.d_tx().init(dp), rng=jax.random.PRNGKey(0))
+    # Adam's zero moments in one compiled program, not one per parameter shape.
+    jstate = jenvs.TrainState(step=jnp.zeros((), jnp.int32), g_params=gp, g_opt=jax.jit(jenv.g_tx().init)(gp),
+                              d_params=dp, d_sn=dsn, d_opt=jax.jit(jenv.d_tx().init)(dp), rng=jax.random.PRNGKey(0))
 
     env = create_training_environment(create_model(spec), TrainConfig(**cfg_kw))
     state = env.init_state((H, W), g_params=g_params, d_variables=d_vars, device="cpu")
     return jenv, jstate, env, state, targets
 
 
-def _jax_first_update(jenv, jstate, targets):
-    """Step-1 loss terms, gradients and SN state by jax.value_and_grad of the two losses."""
-    g_fn = jax.jit(jax.value_and_grad(jenv._g_loss, has_aux=True), static_argnums=(5, 6, 7))
-    (_, (out, g_terms)), g_grads = g_fn(jstate.g_params, jstate.d_params, jstate.d_sn, jstate.rng, jstate.step,
-                                        K, T, F, targets)
-    d_fn = jax.jit(jax.value_and_grad(jenv._d_loss, has_aux=True), static_argnums=(3, 4, 5))
-    (_, (d_sn, d_terms)), d_grads = d_fn(jstate.d_params, jstate.d_sn, out["pred"], K, T, F, targets)
-    return {**g_terms, **d_terms}, g_grads, d_grads, d_sn
+def _first_moment_gradient(opt_state, b1):
+    """The gradient of an Adam state's first step: mu = (1 - b1) * grad exactly
+    (b1 = 0.5), so the JAX step's own gradient, without a second compile."""
+    return jax.tree.map(lambda m: np.asarray(m) / (1.0 - b1), opt_state[0].mu)
 
 
 @pytest.fixture(scope="module", params=sorted(MODELS))
 def f32_run(request):
-    """Both packages from the same weights and batch: step 1 by value_and_grad
-    on the JAX side, then three train_steps on each side."""
+    """Both packages from the same weights and batch, three train_steps each;
+    JAX's step-1 gradients are read from its Adam moments and its SN state
+    after step 1."""
     jenv, jstate, env, state, targets = _setup(*MODELS[request.param], "float32")
-    terms1, g_grads, d_grads, d_sn = _jax_first_update(jenv, jstate, targets)
     want_steps = []
-    for _ in range(3):
+    for i in range(3):
         jstate, m = jenv.train_step(jstate, K, T, F, targets)
         want_steps.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            b1 = jenv.cfg.beta1
+            g_grads, d_grads = (_first_moment_gradient(o, b1) for o in (jstate.g_opt, jstate.d_opt))
+            d_sn = jax.tree.map(np.asarray, jstate.d_sn)
 
     got_steps, grads = [], None
     for i in range(3):
@@ -86,7 +88,7 @@ def f32_run(request):
             grads = ({n: p.grad.clone() for n, p in state.generator.named_parameters()},
                      {n: p.grad.clone() for n, p in state.discriminator.named_parameters()},
                      {k: b.clone() for k, b in state.discriminator.state_dict().items() if k.endswith(".u")})
-    return dict(terms1={k: float(v) for k, v in terms1.items()}, g_grads=params_from_jax(g_grads),
+    return dict(terms1=want_steps[0], g_grads=params_from_jax(g_grads),
                 d_grads=disc_variables_from_jax({"params": d_grads}),
                 u1=disc_variables_from_jax({"params": {}, "sn": d_sn}), want_steps=want_steps,
                 got_steps=got_steps, got_grads=grads, state=state)

@@ -11,7 +11,7 @@ batch axis (t-major) so KernelNet runs once over B*T elements.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -68,18 +68,23 @@ class BidirectionalMCNetModel(nn.Module):
 
 
 class TAIFillInModel(BidirectionalMCNetModel):
-    """bi-TAI: bidirectional MC-Net + time-aware adaptive-kernel blending."""
+    """bi-TAI: bidirectional MC-Net + time-aware adaptive-kernel blending.
+
+    ``sepconv_impl`` is vfi_tpu's field of that name: :func:`sepconv`'s
+    ``impl`` for the kernel net (None: the device's default; it holds no
+    weights).
+    """
 
     use_ratio = True
 
     def __init__(self, gf_dim: int, c_dim: int, feature_size: int = 3, forget_bias: float = 1.0,
                  ks: int = 51, num_block: int = 5, kf_dim: int = 32, layers: int = 3,
-                 align_corners: bool = True):
+                 align_corners: bool = True, sepconv_impl: Optional[str] = None):
         super().__init__(gf_dim, c_dim, feature_size, forget_bias)
         self.merge_residual2 = Residual(gf_dim * 4, kf_dim * 2)
         self.merge_residual3 = Residual(gf_dim * 8, kf_dim * 4)
-        self.kernelnet = KernelNet(gf_dim, ks, num_block, layers, kf_dim,
-                                   use_ratio=self.use_ratio, align_corners=align_corners)
+        self.kernelnet = KernelNet(gf_dim, ks, num_block, layers, kf_dim, use_ratio=self.use_ratio,
+                                   align_corners=align_corners, sepconv_impl=sepconv_impl)
 
     def forward(self, T: int, preceding, following) -> Dict[str, torch.Tensor]:
         B = preceding.shape[0]

@@ -15,12 +15,14 @@ sepconv's ``[B, H, W, C]``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.image import upsample2x_bilinear
-from ..ops.sepconv import pad_for_sepconv, sepconv
+from ..ops.sepconv import IMPLS, pad_for_sepconv, sepconv
 from .layers import Conv, ConvBlock, avg_pool2
 
 
@@ -49,14 +51,20 @@ class KernelNet(nn.Module):
     """U-Net + four kernel heads + the two sepconv applications.
 
     :param use_ratio: True for TAI (inject the time plane), False for TWI.
+    :param sepconv_impl: :func:`sepconv`'s ``impl`` for both applications
+        (None: the device's default).
     """
 
     def __init__(self, gf_dim: int, ks: int, num_block: int = 5, layers: int = 3, kf_dim: int = 32,
-                 use_ratio: bool = True, rc_loc: int = 4, align_corners: bool = True):
+                 use_ratio: bool = True, rc_loc: int = 4, align_corners: bool = True,
+                 sepconv_impl: Optional[str] = None):
         super().__init__()
         if num_block < 4:
             raise ValueError(f"num_block must be >= 4, got {num_block}")
+        if sepconv_impl not in (None, *IMPLS):
+            raise ValueError(f"unknown sepconv impl {sepconv_impl!r}; one of {IMPLS} or None")
         self.ks, self.num_block, self.use_ratio, self.rc_loc = ks, num_block, use_ratio, rc_loc
+        self.sepconv_impl = sepconv_impl
         nb, kf = num_block, kf_dim
         c = 16 * gf_dim  # [dyn1, dyn2, cont1, cont2], 4g channels each
         for i in range(3, nb):
@@ -108,6 +116,6 @@ class KernelNet(nn.Module):
         # [B, H, W, ks] with tap stride H*W, which the kernel reads as is.
         v1, v2, h1, h2 = (getattr(self, n)(x).permute(0, 2, 3, 1)
                           for n in ("vertical1", "vertical2", "horizontal1", "horizontal2"))
-        dot1 = sepconv(pad_for_sepconv(frame1.permute(0, 2, 3, 1), self.ks), v1, h1)
-        dot2 = sepconv(pad_for_sepconv(frame2.permute(0, 2, 3, 1), self.ks), v2, h2)
+        dot1 = sepconv(pad_for_sepconv(frame1.permute(0, 2, 3, 1), self.ks), v1, h1, impl=self.sepconv_impl)
+        dot2 = sepconv(pad_for_sepconv(frame2.permute(0, 2, 3, 1), self.ks), v2, h2, impl=self.sepconv_impl)
         return dot1, dot2

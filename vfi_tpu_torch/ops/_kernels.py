@@ -24,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {
     "sepconv_fwd": "sepconv_fwd.cu",
+    "sepconv_fwd_mxu": "sepconv_fwd_mxu.cu",
     "sepconv_bwd_vh": "sepconv_bwd_vh.cu",
     "sepconv_bwd_x": "sepconv_bwd_x.cu",
 }
@@ -31,7 +32,8 @@ HEADERS = ("sepconv_common.cuh",)
 
 # The sepconv kernels are instantiated for 1..4 channels (one f32 accumulator
 # each in registers); ks up to 64 keeps each kernel's shared-memory tiles
-# within a block's 227 KB at C=4.
+# within a block's 227 KB at C=4 (the banded forward's float32 tiles excepted,
+# which fit up to 3 channels at ks=51).
 SEPCONV_MAX_CHANNELS = 4
 SEPCONV_MAX_KS = 64
 
@@ -98,7 +100,7 @@ def _load(name: str) -> ctypes.CDLL:
 
 # Each kernel's C entry takes its rank-4 tensors' pointers, then their
 # element strides, then B, H, W, C, ks, the dtype code and the stream.
-_N_TENSORS = {"sepconv_fwd": 4, "sepconv_bwd_vh": 6, "sepconv_bwd_x": 4}
+_N_TENSORS = {"sepconv_fwd": 4, "sepconv_fwd_mxu": 4, "sepconv_bwd_vh": 6, "sepconv_bwd_x": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

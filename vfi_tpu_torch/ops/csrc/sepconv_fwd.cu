@@ -1,10 +1,13 @@
-// Adaptive separable convolution, forward, for sm_90a (H100).
+// Adaptive separable convolution, forward, direct accumulation, for sm_90a (H100).
 //
 //   out[b,y,x,c] = sum_fy v[b,y,x,fy] * sum_fx x[b,y+fy,x+fx,c] * h[b,y,x,fx]
 //
-// Replaces vfi_tpu's Pallas kernel _sepconv_pallas_mxu_raw
-// (vfi_tpu/ops/sepconv.py:317-484), which builds the banded matrix
-// S[y][x,u] = h[y,x,u-x] in VMEM and runs one MXU matmul per output row.
+// Replaces vfi_tpu's Pallas kernel _sepconv_pallas_raw
+// (vfi_tpu/ops/sepconv.py:197-276), which accumulates the ks x ks taps of
+// each output pixel on the VPU, with row tiles of the padded input, both
+// kernel stacks and the accumulator in VMEM (impl="pallas").  The banded
+// tensor-core form of _sepconv_pallas_mxu_raw, the default, is
+// sepconv_fwd_mxu.cu; this kernel is its cross-check on the card.
 //
 // What bounds it on the H100: the per-pixel kernels.  At the bi-TAI serving
 // shape (B*T=320, 128x128, ks=51, C=1) v and h are 535 MB each in bf16 while
@@ -25,9 +28,7 @@
 // result is rounded once on store.
 //
 // This is the simple CUDA-core kernel: each multiply-add costs a shared-memory
-// read of the patch and of h, so it runs well above the memory bound.  The
-// tensor-core banded design (S built in shared memory, wgmma) is the next
-// kernel's work.
+// read of the patch and of h, so it runs well above the memory bound.
 
 #include "sepconv_common.cuh"
 

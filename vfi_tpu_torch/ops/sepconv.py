@@ -13,28 +13,40 @@ goes in without a copy.
 Implementations, each a plain PyTorch version beside a hand-written CUDA
 kernel (``csrc/``) that is held against it:
 
-  * forward: :func:`sepconv_direct` (O(ks^2) accumulation, the spec) and
-    :func:`sepconv_banded` (the horizontal pass as a matmul against the
-    banded matrix ``S[b, y, x, u] = h[b, y, x, u-x]``);
-    :func:`sepconv_fwd_cuda` (``sepconv_fwd.cu``).
+  * forward, direct: :func:`sepconv_direct` (O(ks^2) accumulation, the spec);
+    :func:`sepconv_fwd_cuda` (``sepconv_fwd.cu``, the counterpart of
+    vfi_tpu's ``_sepconv_pallas_raw``).
+  * forward, banded: :func:`sepconv_banded` (the horizontal pass as a matmul
+    against the banded matrix ``S[b, y, x, u] = h[b, y, x, u-x]``);
+    :func:`sepconv_fwd_mxu_cuda` (``sepconv_fwd_mxu.cu``, tensor cores, the
+    counterpart of ``_sepconv_pallas_mxu_raw``); :func:`_sepconv_mxu_tiled`
+    emulates that kernel's tiling and arithmetic (tests only).
   * adjoint for the kernels: :func:`sepconv_bwd_vh_plain`;
     :func:`sepconv_bwd_vh_cuda` (``sepconv_bwd_vh.cu``).
   * adjoint for the input: :func:`sepconv_bwd_x_plain`;
     :func:`sepconv_bwd_x_cuda` (``sepconv_bwd_x.cu``).
 
-:func:`sepconv` goes through :class:`SepConv`, which takes the plain versions
-for CPU tensors and the kernels for CUDA tensors, forward and backward.
-The plain versions compute in float32 (float64 stays float64) and return the
-operands' dtype.
+:func:`sepconv` dispatches on vfi_tpu's ``impl`` values: ``"direct"`` and
+``"mxu"`` are the plain versions (autograd through them) on either device;
+``"pallas"`` and ``"pallas_mxu"`` go through :class:`SepConv`, which takes
+the plain versions for CPU tensors and the kernels for CUDA tensors, forward
+and backward.  The plain versions compute in float32 (float64 stays float64)
+and return the operands' dtype.
 """
 
 from __future__ import annotations
 
+from typing import Literal, Optional, get_args
+
 import torch
 import torch.nn.functional as F
 
+Impl = Literal["direct", "mxu", "pallas", "pallas_mxu"]
+IMPLS = get_args(Impl)
+
 # Launches of each CUDA kernel; each is incremented by its wrapper only.
 sepconv_fwd_launches = 0
+sepconv_fwd_mxu_launches = 0
 sepconv_bwd_vh_launches = 0
 sepconv_bwd_x_launches = 0
 
@@ -137,6 +149,57 @@ def sepconv_banded(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+# The banded kernel's column tile (``TW`` in ``csrc/sepconv_fwd_mxu.cu``).
+MXU_TILE_W = 128
+
+
+def _split_bf16(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``a`` as ``hi + lo``, each a bfloat16 number held in float32."""
+    hi = a.to(torch.bfloat16).float()
+    return hi, (a - hi).to(torch.bfloat16).float()
+
+
+def _sepconv_mxu_tiled(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Torch emulation of ``sepconv_fwd_mxu.cu``'s tiling and arithmetic, for
+    the tests: it is on no path.
+
+    Columns go in tiles of ``MXU_TILE_W``, the last one zero-padded.  Per
+    output row and column tile, S^T ``[TW, K]`` is a zeroed buffer into which
+    the row's band is written; K (``TW+ks-1`` input columns) is zero-padded to
+    a multiple of 16 and the taps (M) are padded to a multiple of 16 by
+    repeating the last slab row, whose products meet zero vertical taps.
+    float32 operands multiply as the bf16 split ``hi*hi + lo*hi + hi*lo``;
+    bfloat16 operands as they are.  Products and sums are float32.
+    """
+    B, H, W, C, ks = _check_shapes(x, v, h)
+    tw = MXU_TILE_W
+    split = x.dtype != torch.bfloat16
+    nw = -(-W // tw)
+    ku = tw + ks - 1
+    kp = -(-ku // 16) * 16
+    mp = -(-ks // 16) * 16
+    dev = x.device
+    xf = F.pad(_wide(x), (0, 0, 0, nw * tw - W))  # [B, Hp, nw*tw+ks-1, C]
+    vf = F.pad(_wide(v), (0, mp - ks, 0, nw * tw - W))  # [B, H, nw*tw, mp]
+    hf = F.pad(_wide(h), (0, 0, 0, nw * tw - W))  # [B, H, nw*tw, ks]
+    taps = torch.arange(mp, device=dev).clamp(max=ks - 1)
+    rows = torch.arange(H, device=dev)[:, None] + taps  # [H, mp]
+    band = (torch.arange(tw, device=dev)[:, None] + torch.arange(ks, device=dev)).expand(B, H, tw, ks)
+    tiles = []
+    for j in range(nw):
+        slab = F.pad(xf[:, :, j * tw : j * tw + ku], (0, 0, 0, kp - ku))[:, rows]  # [B, H, mp, kp, C]
+        st = torch.zeros((B, H, tw, kp), dtype=xf.dtype, device=dev)
+        st.scatter_(-1, band, hf[:, :, j * tw : (j + 1) * tw])  # st[.., x, x+f] = h[.., x, f]
+        if split:
+            (a_hi, a_lo), (s_hi, s_lo) = _split_bf16(slab), _split_bf16(st)
+            pairs = ((a_hi, s_hi), (a_lo, s_hi), (a_hi, s_lo))
+        else:
+            pairs = ((slab, st),)
+        inner = sum(torch.einsum("byfuc,byxu->byfxc", a, s) for a, s in pairs)
+        tiles.append(torch.einsum("byfxc,byxf->byxc", inner, vf[:, :, j * tw : (j + 1) * tw]))
+    return torch.cat(tiles, dim=2)[:, :, :W].to(x.dtype)
+
+
 def sepconv_bwd_vh_plain(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor,
                          g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Adjoints for the per-pixel kernels, summed over channels (banded form):
@@ -194,10 +257,11 @@ def _check_kernel_operands(fn: str, C: int, ks: int, **tensors: torch.Tensor) ->
 
 
 def sepconv_fwd_cuda(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Launch the hand-written CUDA forward kernel on CUDA tensors.
+    """Launch the direct-accumulation CUDA forward kernel on CUDA tensors.
 
-    Counterpart of vfi_tpu's Pallas kernel ``_sepconv_pallas_mxu_raw``.
-    Raises on anything the kernel does not take; never falls back.
+    Counterpart of vfi_tpu's Pallas kernel ``_sepconv_pallas_raw``
+    (``impl="pallas"``).  Raises on anything the kernel does not take; never
+    falls back.
     """
     global sepconv_fwd_launches
     from . import _kernels
@@ -210,6 +274,28 @@ def sepconv_fwd_cuda(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch
     with torch.cuda.device(x.device):
         _kernels.launch("sepconv_fwd", (x, v, h, out), B, H, W, C, ks)
     sepconv_fwd_launches += 1
+    return out
+
+
+def sepconv_fwd_mxu_cuda(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Launch the banded tensor-core CUDA forward kernel on CUDA tensors.
+
+    Counterpart of vfi_tpu's Pallas kernel ``_sepconv_pallas_mxu_raw``
+    (``impl="pallas_mxu"``, the default on CUDA).  Raises on anything the
+    kernel does not take, including a float32 call whose tiles do not fit a
+    block's shared memory (4 channels at ks=51); never falls back.
+    """
+    global sepconv_fwd_mxu_launches
+    from . import _kernels
+
+    B, H, W, C, ks = _check_shapes(x, v, h)
+    _check_kernel_operands("sepconv_fwd_mxu_cuda", C, ks, x=x, v=v, h=h)
+    out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _kernels.launch("sepconv_fwd_mxu", (x, v, h, out), B, H, W, C, ks)
+    sepconv_fwd_mxu_launches += 1
     return out
 
 
@@ -263,37 +349,54 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 
 class SepConv(torch.autograd.Function):
     """sepconv with its adjoints: the plain versions on CPU tensors, the CUDA
-    kernels on CUDA tensors (which raise on what they cannot run)."""
+    kernels on CUDA tensors (which raise on what they cannot run).
+
+    ``impl`` picks the forward: ``"pallas"`` the direct one
+    (:func:`sepconv_direct` / :func:`sepconv_fwd_cuda`), ``"pallas_mxu"`` the
+    banded one (:func:`sepconv_banded` / :func:`sepconv_fwd_mxu_cuda`).  The
+    backward is the same for both, as in vfi_tpu, whose two Pallas forwards
+    share the adjoint of the banded formulation.
+    """
 
     @staticmethod
-    def forward(ctx, x, v, h):
+    def forward(ctx, x, v, h, impl="pallas_mxu"):
         ctx.save_for_backward(x, v, h)
-        if _on_cpu(x, v, h):
-            return sepconv_banded(x, v, h)
-        return sepconv_fwd_cuda(x, v, h)
+        if impl == "pallas":
+            return (sepconv_direct if _on_cpu(x, v, h) else sepconv_fwd_cuda)(x, v, h)
+        return (sepconv_banded if _on_cpu(x, v, h) else sepconv_fwd_mxu_cuda)(x, v, h)
 
     @staticmethod
     def backward(ctx, g):
         x, v, h = ctx.saved_tensors
-        need_x, need_v, need_h = ctx.needs_input_grad
+        need_x, need_v, need_h = ctx.needs_input_grad[:3]
         cpu = _on_cpu(x, v, h, g)
         grad_x = grad_v = grad_h = None
         if need_v or need_h:
             grad_v, grad_h = (sepconv_bwd_vh_plain if cpu else sepconv_bwd_vh_cuda)(x, v, h, g)
         if need_x:
             grad_x = (sepconv_bwd_x_plain if cpu else sepconv_bwd_x_cuda)(v, h, g)
-        return grad_x, grad_v if need_v else None, grad_h if need_h else None
+        return grad_x, grad_v if need_v else None, grad_h if need_h else None, None
 
 
-def sepconv(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def sepconv(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor, impl: Optional[Impl] = None) -> torch.Tensor:
     """Adaptive separable convolution, differentiable in all three operands.
-
-    CPU operands take the plain versions; CUDA operands take the CUDA
-    kernels, which raise on what they cannot run.
 
     :param x: pre-padded input ``[B, H+ks-1, W+ks-1, C]`` (:func:`pad_for_sepconv`)
     :param v: per-pixel vertical kernels ``[B, H, W, ks]``
     :param h: per-pixel horizontal kernels ``[B, H, W, ks]``
+    :param impl: vfi_tpu's names: ``"direct"`` and ``"mxu"`` are the plain
+        versions on either device; ``"pallas"`` and ``"pallas_mxu"`` are the
+        direct and the banded CUDA kernel on CUDA operands (which raise on what
+        they cannot run) and the plain versions on CPU operands.  ``None``:
+        ``"pallas_mxu"`` on CUDA, ``"mxu"`` on the CPU.
     :return: ``[B, H, W, C]`` in the input dtype
     """
-    return SepConv.apply(x, v, h)
+    if impl is None:
+        impl = "mxu" if _on_cpu(x, v, h) else "pallas_mxu"
+    if impl == "direct":
+        return sepconv_direct(x, v, h)
+    if impl == "mxu":
+        return sepconv_banded(x, v, h)
+    if impl in ("pallas", "pallas_mxu"):
+        return SepConv.apply(x, v, h, impl)
+    raise ValueError(f"unknown sepconv impl {impl!r}; one of {IMPLS} or None")
