@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline CHECKOUT]
 
 Drives the port's paths with random weights from a seed: bi-TAI serving
 through ``vfi_tpu_torch.api.VideoInpainter`` and the GAN training step (one G
@@ -20,7 +20,11 @@ tensor-core kernel by default (``"pallas_mxu"``), the direct kernel under
                    f32 (TF32 off) within 1e-4 * max(1, max|ref|); bf16 within
                    one bf16 ulp of the f32 plain version on the same bf16
                    inputs.  The banded kernel also against the emulation of
-                   its tiling (``_sepconv_mxu_tiled``), recorded.
+                   its tiling (``_sepconv_mxu_tiled``), recorded; the two
+                   adjoints also at the TAI_color training shape and, on 2
+                   images of each training shape, against the emulations of
+                   their tiling (f32 within 1e-5 * max(1, max|emulation|),
+                   bf16 within one bf16 ulp).
   4. serve       — TAI_gray, default route: f32 forward on the golden inputs
                    against the JAX golden (``tests/torch_golden_tai_gray.npz``):
                    max-abs <= 5e-3 and uint8 PSNR >= 45 dB; then uint8
@@ -48,7 +52,9 @@ tensor-core kernel by default (``"pallas_mxu"``), the direct kernel under
                    and peak device memory.
  11. train_color — TAI_color 256x320 B=4 in bf16: the same counts and times.
  12. timing      — CUDA-event times of each kernel, its plain version and the
-                   serving forwards; a ``kernels`` line with each kernel's
+                   serving forwards (the adjoints at both training shapes;
+                   with ``--baseline``, another checkout's adjoint kernels in
+                   turns with these); a ``kernels`` line with each kernel's
                    numbers.
 
 Prints the card's name and power limit (nvidia-smi) on the line before the
@@ -58,6 +64,7 @@ exits non-zero before that line.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import json
@@ -116,6 +123,9 @@ PEAKS = {
     "H100": (3.35e12, 989e12, 67e12),  # SXM
 }
 KS = 51
+# The adjoints' main-path shapes (B*T, H, W, C): TAI_gray training at B=8,
+# TAI_color 256x320 training at B=4.
+ADJOINT_SHAPES = {"gray_train": (40, 128, 128, 1), "color_train": (20, 256, 320, 3)}
 
 
 def golden_inputs(cfg=GOLDEN):
@@ -327,6 +337,7 @@ def phase_adjoint_checks(gen) -> dict:
     cases = [  # (B*T, H, W, C, ks, expand_g)
         (40, 128, 128, 1, KS, False),  # TAI_gray training, B=8: 2 calls per G step
         (4, 256, 320, 3, KS, False),  # TAI_color at 256x320
+        (20, 256, 320, 3, KS, False),  # TAI_color training, B=4
         (3, 37, 45, 3, 4, True),  # ragged, even ks, stride-0 cotangent
     ]
     for BT, H, W, C, ks, expand_g in cases:
@@ -339,6 +350,8 @@ def phase_adjoint_checks(gen) -> dict:
             torch.cuda.synchronize()
             gate(got_v.stride() == v.stride() and got_h.stride() == h.stride(),
                  f"adjoint gradients not laid out like v, h: {got_v.stride()} vs {v.stride()}")
+            if (BT, H, W, C) in ADJOINT_SHAPES.values():
+                errs.update(_adjoint_vs_emulation(x, v, h, g, got_x, got_v, got_h, (BT, H, W, C, ks)))
             want_v, want_h = sepconv_ops.sepconv_bwd_vh_plain(*wide)
             want_x = sepconv_ops.sepconv_bwd_x_plain(*wide[1:])
             for name, got, want in (("grad_v", got_v, want_v), ("grad_h", got_h, want_h), ("grad_x", got_x, want_x)):
@@ -368,6 +381,33 @@ def phase_adjoint_checks(gen) -> dict:
 # Images of a batch that the tiling emulation is compared on (it holds the
 # whole slab and S in float32).
 EMULATED_IMAGES = 8
+# The same for the adjoints' emulations (they hold every row's slab and band).
+ADJOINT_EMULATED_IMAGES = 2
+
+
+def _adjoint_vs_emulation(x, v, h, g, got_x, got_v, got_h, shape) -> dict:
+    """Both adjoint kernels' outputs against the emulations of their tiling
+    (``_sepconv_bwd_vh_tiled``, ``_sepconv_bwd_x_tiled``) on the first
+    ``ADJOINT_EMULATED_IMAGES`` images: the same products summed in another
+    order, so f32 within 1e-5 * max(1, max|emulation|) and bf16 within one
+    bf16 ulp of the emulation's result."""
+    n = ADJOINT_EMULATED_IMAGES
+    emul_v, emul_h = sepconv_ops._sepconv_bwd_vh_tiled(x[:n], v[:n], h[:n], g[:n])
+    emul_x = sepconv_ops._sepconv_bwd_x_tiled(v[:n], h[:n], g[:n])
+    errs = {}
+    for name, got, emul in (("grad_v", got_v, emul_v), ("grad_h", got_h, emul_h), ("grad_x", got_x, emul_x)):
+        kernel = "sepconv_bwd_x" if name == "grad_x" else "sepconv_bwd_vh"
+        diff = (got[:n].float() - emul.float()).abs()
+        if x.dtype == torch.float32:
+            err = float(diff.max())
+            errs[(kernel, name, "f32_vs_emulation_max_abs")] = err
+            gate(err <= 1e-5 * max(1.0, float(emul.abs().max())),
+                 f"{kernel} {name} f32 {shape}: {err} off the emulation of its tiling")
+        else:
+            ulps = float((diff / bf16_ulp(emul.float())).max())
+            errs[(kernel, name, "bf16_vs_emulation_max_ulps")] = ulps
+            gate(ulps <= 1.0, f"{kernel} {name} bf16 {shape}: {ulps} bf16 ulps off the emulation of its tiling")
+    return errs
 
 
 def phase_kernel_checks(gen) -> dict:
@@ -678,7 +718,7 @@ def phase_train_color(gen) -> dict:
     return launches
 
 
-def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict, gen):
+def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict, gen, baseline=None):
     # TAI_gray serving at B=64 and training at B=8, TAI_color serving at B=16
     shapes = {"gray": (320, 128, 128, 1), "gray_train": (40, 128, 128, 1), "color": (80, 256, 320, 3)}
     fwd = {}
@@ -714,27 +754,7 @@ def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict
     del ip
     torch.cuda.empty_cache()
 
-    adj = {}
-    C = 1
-    for dtype in (torch.bfloat16, torch.float32):
-        x, v, h, g = _adjoint_cases(40, H, W, C, KS, dtype, gen)
-        runs = {
-            "sepconv_bwd_vh": (lambda: sepconv_ops.sepconv_bwd_vh_cuda(x, v, h, g),
-                               lambda: sepconv_ops.sepconv_bwd_vh_plain(x, v, h, g),
-                               sepconv_bwd_vh_bound_ms(x, v, h, g, peak)),
-            "sepconv_bwd_x": (lambda: sepconv_ops.sepconv_bwd_x_cuda(v, h, g),
-                              lambda: sepconv_ops.sepconv_bwd_x_plain(v, h, g),
-                              sepconv_bwd_x_bound_ms(v, h, g, peak)),
-        }
-        for name, (kernel, plain, (bound, by)) in runs.items():
-            with uncounted():
-                ms = cuda_ms(kernel, iters=10)
-            plain_ms = cuda_ms(plain, iters=3, warmup=1)
-            adj[name, dtype] = (ms, plain_ms, bound, by)
-            emit("timing_kernel", kernel=name, dtype=str(dtype), shape=[40, H, W, C, KS], ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound, bound_by=by, achieved_over_bound=bound / ms)
-        del x, v, h, g, runs
-        torch.cuda.empty_cache()
+    adj = time_adjoints(peak, gen, baseline)
 
     def launches(name):
         by_path = {p: n[name] for p, n in path_launches.items() if n[name]}
@@ -760,17 +780,118 @@ def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict
             "train_bound_ms": tbound16,
         })
     for name, line in (("sepconv_bwd_vh", 608), ("sepconv_bwd_x", 729)):
-        ms16, plain16, bound16, by16 = adj[name, torch.bfloat16]
-        ms32, plain32, bound32, by32 = adj[name, torch.float32]
+        ms16, plain16, bound16, by16, base16 = adj[name, "gray_train", torch.bfloat16]
+        ms32, plain32, bound32, by32, base32 = adj[name, "gray_train", torch.float32]
+        c16, cplain16, cbound16, cby16, cbase16 = adj[name, "color_train", torch.bfloat16]
+        c32, cplain32, cbound32, cby32, cbase32 = adj[name, "color_train", torch.float32]
         total, by_path = launches(name)
+        baseline_keys = {} if base16 is None else {
+            "baseline_ms": base16, "baseline_ms_f32": base32, "color_baseline_ms": cbase16,
+            "color_baseline_ms_f32": cbase32}
         kernels.append({
             "name": name, "route": "cuda", "source": f"vfi_tpu_torch/ops/csrc/{name}.cu",
             "replaces": f"vfi_tpu/ops/sepconv.py:{line}", "launches": total, "launches_by_path": by_path,
             "max_abs_err": adj_err[name], "ms": ms16, "plain_ms": plain16, "bound_ms": bound16, "bound_by": by16,
-            "library_ms": None, "shape": [40, H, W, C, KS], "dtype": "bfloat16",
+            "library_ms": None, "shape": list(ADJOINT_SHAPES["gray_train"]) + [KS], "dtype": "bfloat16",
             "ms_f32": ms32, "plain_ms_f32": plain32, "bound_ms_f32": bound32, "bound_by_f32": by32,
+            "color_shape": list(ADJOINT_SHAPES["color_train"]) + [KS], "color_ms": c16, "color_plain_ms": cplain16,
+            "color_bound_ms": cbound16, "color_bound_by": cby16, "color_ms_f32": c32, "color_plain_ms_f32": cplain32,
+            "color_bound_ms_f32": cbound32, "color_bound_by_f32": cby32, **baseline_keys,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
+
+
+
+def time_adjoints(peak, gen, baseline=None) -> dict:
+    """CUDA-event times of both adjoint kernels and their plain versions at
+    ``ADJOINT_SHAPES`` in bf16 and f32, with their bounds; emits a
+    ``timing_kernel`` line each.  Returns {(name, shape, dtype): (ms,
+    plain_ms, bound_ms, bound_by, baseline_ms)}.  ``baseline``
+    (:func:`baseline_adjoints`) is an earlier build of the same kernels, timed
+    in turns with these (baseline, kernel, kernel, baseline); baseline_ms is
+    None without it."""
+    adj = {}
+    for shape_name, (BT, H, W, C) in ADJOINT_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, v, h, g = _adjoint_cases(BT, H, W, C, KS, dtype, gen)
+            args = {"sepconv_bwd_vh": (x, v, h, g), "sepconv_bwd_x": (v, h, g)}
+            runs = {
+                "sepconv_bwd_vh": (sepconv_ops.sepconv_bwd_vh_cuda, sepconv_ops.sepconv_bwd_vh_plain,
+                                   sepconv_bwd_vh_bound_ms(x, v, h, g, peak)),
+                "sepconv_bwd_x": (sepconv_ops.sepconv_bwd_x_cuda, sepconv_ops.sepconv_bwd_x_plain,
+                                  sepconv_bwd_x_bound_ms(v, h, g, peak)),
+            }
+            for name, (kernel, plain, (bound, by)) in runs.items():
+                a = args[name]
+                base_ms = None
+                with uncounted():
+                    if baseline is None:
+                        ms = cuda_ms(lambda: kernel(*a), iters=10)
+                    else:
+                        b0 = cuda_ms(lambda: baseline[name](*a), iters=10)
+                        ms = (cuda_ms(lambda: kernel(*a), iters=10) + cuda_ms(lambda: kernel(*a), iters=10)) / 2
+                        base_ms = (b0 + cuda_ms(lambda: baseline[name](*a), iters=10)) / 2
+                plain_ms = cuda_ms(lambda: plain(*a), iters=3, warmup=1)
+                adj[name, shape_name, dtype] = (ms, plain_ms, bound, by, base_ms)
+                emit("timing_kernel", kernel=name, dtype=str(dtype), shape=[BT, H, W, C, KS], ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound, bound_by=by, achieved_over_bound=bound / ms,
+                     baseline_ms=base_ms)
+            del x, v, h, g, args
+            torch.cuda.empty_cache()
+    return adj
+
+
+def build_library(src: str, out_dir: str, entry: str, n_tensors: int):
+    """nvcc ``src`` with the port's flags into ``out_dir`` (``lib<stem>.so``;
+    its headers beside it) and bind its C entry ``entry`` (the port's entry
+    signature: ``n_tensors`` pointers, their strides, B, H, W, C, ks, dtype,
+    stream).  Returns (entry, ptxas lines)."""
+    import ctypes
+
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, f"lib{os.path.splitext(os.path.basename(src))[0]}.so")
+    proc = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", lib, src], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: {src} failed to build:\n{log}")
+    fn = getattr(ctypes.CDLL(lib), entry)
+    P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [P] * n_tensors + [I64] * (4 * n_tensors) + [I] * 6 + [P]
+    fn.restype = I
+    return fn, [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+
+
+def call_library(fn, tensors, B, H, W, C, ks) -> None:
+    rc = fn(*(t.data_ptr() for t in tensors), *(s for t in tensors for s in t.stride()), B, H, W, C, ks,
+            _kernels._DTYPE_CODE[tensors[0].dtype], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise SystemExit(f"chip_smoke: launch failed: CUDA error {rc}")
+
+
+def baseline_adjoints(checkout: str) -> dict:
+    """The two adjoint kernels of another checkout of this repo (an earlier
+    commit, whose C entries take the same arguments), built into
+    ``vfi_tpu_torch/_build/baseline/`` and wrapped as the port's wrappers are."""
+    csrc = os.path.join(checkout, "vfi_tpu_torch", "ops", "csrc")
+    out_dir = os.path.join(str(_kernels.BUILD_DIR), "baseline")
+    with concurrent.futures.ThreadPoolExecutor() as pool:  # both nvcc processes at once
+        (vh, vh_log), (bx, bx_log) = pool.map(
+            lambda e: build_library(os.path.join(csrc, f"{e[0]}.cu"), out_dir, *e),
+            [("sepconv_bwd_vh", 6), ("sepconv_bwd_x", 4)])
+    emit("baseline_build", checkout=checkout, ptxas={"sepconv_bwd_vh": vh_log, "sepconv_bwd_x": bx_log})
+
+    def bwd_vh(x, v, h, g):
+        gv, gh = torch.empty_like(v), torch.empty_like(h)
+        call_library(vh, (x, v, h, g, gv, gh), *v.shape[:3], x.shape[-1], v.shape[-1])
+        return gv, gh
+
+    def bwd_x(v, h, g):
+        B, H, W, ks = v.shape
+        gx = torch.empty((B, H + ks - 1, W + ks - 1, g.shape[-1]), dtype=g.dtype, device=g.device)
+        call_library(bx, (v, h, g, gx), B, H, W, g.shape[-1], ks)
+        return gx
+
+    return {"sepconv_bwd_vh": bwd_vh, "sepconv_bwd_x": bwd_x}
 
 
 def _serve_timing(ip, key, impl, dtype, B, T, H, W, C, gen) -> None:
@@ -784,7 +905,14 @@ def _serve_timing(ip, key, impl, dtype, B, T, H, W, C, gen) -> None:
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
+    ap.add_argument("--baseline", metavar="CHECKOUT",
+                    help="another checkout of this repo (an earlier commit): time its two adjoint kernels in "
+                         "turns with these, as baseline_* keys of the kernels line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU", file=sys.stderr)
         return 2
@@ -803,6 +931,7 @@ def main() -> int:
              for n in _kernels.SOURCES}
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0, ptxas=ptxas)
     gate(len(_kernels.SOURCES) == len(KERNELS), f"built {sorted(_kernels.SOURCES)}, the path runs {KERNELS}")
+    baseline = baseline_adjoints(os.path.abspath(args.baseline)) if args.baseline else None
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = phase_kernel_checks(gen)
@@ -818,7 +947,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["train"] = phase_train(gen)
     paths["train_color"] = phase_train_color(gen)
-    phase_timing(state, peak, main_err, adj_err, paths, gen)
+    phase_timing(state, peak, main_err, adj_err, paths, gen, baseline)
 
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -827,4 +956,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

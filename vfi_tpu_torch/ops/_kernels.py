@@ -28,7 +28,7 @@ SOURCES = {
     "sepconv_bwd_vh": "sepconv_bwd_vh.cu",
     "sepconv_bwd_x": "sepconv_bwd_x.cu",
 }
-HEADERS = ("sepconv_common.cuh",)
+HEADERS = ("sepconv_common.cuh", "sepconv_mma.cuh")
 
 # The sepconv kernels are instantiated for 1..4 channels (one f32 accumulator
 # each in registers); ks up to 64 keeps each kernel's shared-memory tiles

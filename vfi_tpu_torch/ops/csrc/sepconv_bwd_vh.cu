@@ -1,185 +1,379 @@
-// Adaptive separable convolution, adjoint for the per-pixel kernels, for sm_90a (H100).
+// Adaptive separable convolution, adjoint for the per-pixel kernels, banded
+// tensor-core form, for sm_90a (H100).
 //
-//   P[b,y,x,f,j] = sum_c g[b,y,x,c] * x[b,y+f,x+j,c]
-//   grad_v[b,y,x,f] = sum_j P[b,y,x,f,j] * h[b,y,x,j]
-//   grad_h[b,y,x,j] = sum_f P[b,y,x,f,j] * v[b,y,x,f]
+//   grad_v[b,y,x,f] = sum_c g[b,y,x,c] * inner_c[f,x],  inner_c[f,x] = sum_u x[b,y+f,u,c] * S_y[u,x]
+//   grad_h[b,y,x,j] = sum_c g[b,y,x,c] * P_c[x,x+j],    P_c[x,u]     = sum_f v[b,y,x,f] * x[b,y+f,u,c]
+//
+// with S_y[u,x] = h[b,y,x,u-x] (0 <= u-x < ks, else 0), the forward's banded matrix.
 //
 // Replaces vfi_tpu's Pallas kernel _sepconv_pallas_bwd_vh_raw
-// (vfi_tpu/ops/sepconv.py:487-635), which recomputes the forward's
-// horizontal pass against the banded matrix S for grad_v and unskews the
-// vertical pass A[y][x,u] = sum_f v*x for grad_h, per (image, channel), and
-// sums the channels outside the call.
+// (vfi_tpu/ops/sepconv.py:487-635), which runs the same two MXU products per
+// output row (the forward's horizontal pass against S for grad_v, the
+// vertical pass v @ slab unskewed for grad_h) per (image, channel), and sums
+// the channels outside the call.
 //
-// What bounds it on the H100: bytes.  At the bi-TAI training shape
-// (B*T=40, 128x128, ks=51, C=1) it reads v and h and writes grad_v and
-// grad_h, 33 M elements each, while x and g are 1.3 M and 0.7 M: about
-// 0.27 GB in bf16, 0.08 ms at 3.35 TB/s (twice that in f32), against
-// 4*ks*(ks+1) flops per output pixel and channel.
+// What bounds it on the H100: bytes.  At the bi-TAI training shape (B*T=40,
+// 128x128, ks=51, C=1) it reads v and h and writes grad_v and grad_h, 33 M
+// elements each, while x and g are 1.3 M and 0.7 M: 0.27 GB in bf16, 0.08 ms
+// at 3.35 TB/s (twice that in f32).  The two banded products are about
+// 4*ks*(TW+ks-1) flops per output pixel and channel before the band is
+// skipped, tens of microseconds of bf16 tensor-core time.
 //
-// What this design does about it: every element of v, h, grad_v and
-// grad_h crosses device memory exactly once, and the channel sum happens
-// inside the kernel (v and h are never repeated per channel).  One block
-// owns a TILE_H x TILE_W tile of output pixels of one image, one thread per
-// pixel.  The block stages the input patch (TILE_H+ks-1) x (TILE_W+ks-1) x C
-// and the tile's v and h taps in shared memory.  Each thread makes two
-// passes over its window: f-major against h for grad_v (the forward's
-// horizontal pass, then times g), j-major against v for grad_h (the
-// vertical pass, then times g).  Each pass computes BLOCK outputs at once,
-// so one tap read from shared memory feeds BLOCK*C multiply-adds and the
-// pass reads shared memory (1 + BLOCK*C)/(BLOCK*C) times per multiply-add
-// instead of twice; each output is one register sum stored once.  Operands
-// come with element strides: the kernel heads' NCHW outputs permuted to
-// [B,H,W,ks], gradients allocated like them, and a cotangent expanded with
-// stride 0 all go in without a copy.  Sums are f32; bf16 operands are
-// widened on load and each output is rounded once.
-//
-// This is a CUDA-core kernel bound by shared-memory reads; it runs above
-// its byte bound.  TILE_H is 4 so that the staged taps (2*ks*128 floats)
-// and the patch fit a block's 227 KB for every ks <= 64 and C <= 4.
+// What this design does about it: every element of v, h, grad_v and grad_h
+// crosses device memory once, and the channel sum happens inside the kernel.
+// One block of 16 warps takes one image, TH output rows and a column tile of
+// TW=128 (the forward's tile).  It stages the input slab (TH+ks-1 rows of
+// TW+ks-1 columns, every channel, as bf16 or a bf16 hi/lo pair) once.  Per
+// output row it stages h, v (tap-major, [ks][TW]) and g by cp.async 16-byte
+// copies into one of two buffers while the previous row's products run, so
+// there is one barrier per row.  grad_v: each warp takes an n-tile of 8
+// columns and runs the horizontal pass as mma.sync m16n8k16 (A the slab rows
+// f, padded to 64 by repeating the last row; B = S_y formed in registers
+// straight from the staged h, only on the 4-5 k-chunks of 16 its band
+// meets); g multiplies the f32 accumulators per channel.  grad_h: each warp
+// takes an m-tile of 16 columns x and half of the 9 n-tiles of 8 input
+// columns u in [x0, x0+ks+15) that its band needs (A = v from the staged
+// taps, K = f padded to 64 with zeros; B = the slab by ldmatrix.trans); g
+// again multiplies the accumulators, and the result is unskewed (j = u-x)
+// through a shared [ks][TW] buffer, double-buffered like the inputs, so that
+// stores stay coalesced along x.  float32 operands multiply as the bf16 split
+// hi*hi + lo*hi + hi*lo (the TPU kernel's split); their tiles take twice the
+// shared memory, so the row tile shrinks, and with 3-4 channels only one
+// staging buffer fits (two barriers per row).  Operands come with element
+// strides (the heads' NCHW outputs permuted to [B,H,W,ks], contiguous NHWC, a
+// cotangent expanded with stride 0); rows that cp.async cannot copy (x not
+// unit-stride, or not 16-byte aligned) take scalar loads.  Sums are f32;
+// each output is rounded once.
 
-#include "sepconv_common.cuh"
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
+
+#include "sepconv_mma.cuh"
 
 namespace {
 
+using sepconv::ld32;
+using sepconv::mma_bf16;
+using sepconv::split_pair;
 using sepconv::Strides;
 using sepconv::store;
 using sepconv::to_float;
+using sepconv::to_smem;
 
-constexpr int TILE_W = 32;  // one warp per tile row: coalesced loads, no bank conflicts
-constexpr int TILE_H = 4;
-constexpr int THREADS = TILE_W * TILE_H;
-constexpr int BLOCK = 4;  // output taps per pass of a thread over its window
+constexpr int TW = 128;  // output columns per block
+constexpr int WARPS = 16;  // grad_v: one n-tile of 8 columns each; grad_h: half an m-tile of 16
+constexpr int THREADS = WARPS * 32;
+constexpr int KC_MAX = 4;   // k-chunks (grad_h) and m-tiles (grad_v) of 16 taps: ks <= 64
+constexpr int NCH_MAX = 5;  // k-chunks of 16 one n-tile's band meets in grad_v
+constexpr int NQ = 5;       // grad_h n-tiles per warp: ceil(ceil((ks+15)/8) / 2)
+constexpr size_t SMEM_MAX = 232448;
 
+// Row stride of the staged [ks][TW] rows: conflict-free fragment loads, 16-byte rows.
 template <typename T>
-__device__ __forceinline__ void stage_taps(float* tile, const T* base, Strides s, int y0, int x0, int H,
-                                           int W, int ks, int tid) {
-  for (int i = tid; i < ks * THREADS; i += THREADS) {
-    int f, p;
-    if (s.last == 1) {  // let the index with unit stride vary fastest across threads
-      f = i % ks;
-      p = i / ks;
-    } else {
-      f = i / THREADS;
-      p = i % THREADS;
-    }
-    const int gy = y0 + p / TILE_W;
-    const int gx = x0 + p % TILE_W;
-    tile[f * THREADS + p] = (gy < H && gx < W) ? to_float(base[gy * s.y + gx * s.x + f * s.last]) : 0.f;
-  }
+__host__ __device__ constexpr int row_stride() {
+  return sizeof(T) == 2 ? TW + 8 : TW + 4;
+}
+
+struct Geometry {
+  int ks, nth, kpad, rs, th, rows, nbuf;
+};
+
+__host__ __device__ inline Geometry geometry(int ks, int th, int nbuf) {
+  Geometry g;
+  g.ks = ks;
+  g.nth = (ks + 22) / 8;  // grad_h n-tiles: u in [x0m, x0m + 8*nth) covers [x0m, x0m+ks+15)
+  const int k1 = (TW + ks - 1 + 15) / 16 * 16;       // grad_v's k-chunks (the forward's K)
+  const int k2 = (TW - 16 + 8 * g.nth + 15) / 16 * 16;  // grad_h's last n-tile
+  g.kpad = k1 > k2 ? k1 : k2;
+  g.rs = g.kpad + 8;  // slab row stride: conflict-free 32-bit and ldmatrix reads
+  g.th = th;
+  g.rows = th + ks - 1;
+  g.nbuf = nbuf;
+  return g;
+}
+
+// One staging buffer: h, v (tap-major [ks][row_stride]), g ([C][TW]) and the
+// unskewed grad_h ([ks][row_stride]), all of type T.
+template <typename T, int C>
+__host__ __device__ inline size_t buffer_elems(int ks) {
+  return size_t(3) * ks * row_stride<T>() + size_t(C) * TW;
+}
+
+template <typename T, int C>
+size_t smem_bytes(const Geometry& g) {
+  constexpr int parts = sizeof(T) == 4 ? 2 : 1;
+  return sizeof(__nv_bfloat16) * parts * size_t(C) * g.rows * g.rs + sizeof(T) * g.nbuf * buffer_elems<T, C>(g.ks);
 }
 
 template <typename T, int C>
 __global__ void __launch_bounds__(THREADS)
 sepconv_bwd_vh_kernel(const T* __restrict__ x, const T* __restrict__ v, const T* __restrict__ h,
-                      const T* __restrict__ g, T* __restrict__ gv, T* __restrict__ gh, Strides sx,
-                      Strides sv, Strides sh, Strides sg, Strides sgv, Strides sgh, int H, int W, int ks,
-                      int tiles_x, int tiles_y) {
-  extern __shared__ float smem[];
-  const int PH = TILE_H + ks - 1;
-  const int PW = TILE_W + ks - 1;
-  float* patch = smem;                  // [C][PH][PW]
-  float* htile = patch + C * PH * PW;   // [ks][THREADS]
-  float* vtile = htile + ks * THREADS;  // [ks][THREADS]
+                      const T* __restrict__ g, T* __restrict__ gv, T* __restrict__ gh, Strides sx, Strides sv,
+                      Strides sh, Strides sg, Strides sgv, Strides sgh, int H, int W, int ks, int th, int nbuf,
+                      int tiles_y, int tiles_x, bool v_async, bool h_async, bool g_async) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int PARTS = SPLIT ? 2 : 1;
+  constexpr int U = SPLIT ? 16 : 4;  // slab loads in flight per thread (the forward's choice)
+  constexpr int HRS = row_stride<T>();
+  const Geometry geo = geometry(ks, th, nbuf);
 
-  const int tiles = tiles_x * tiles_y;
-  const int b = blockIdx.x / tiles;
-  const int t = blockIdx.x % tiles;
-  const int y0 = (t / tiles_x) * TILE_H;
-  const int x0 = (t % tiles_x) * TILE_W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [PARTS][C][rows][rs]
+  const size_t xpart = size_t(C) * geo.rows * geo.rs;
+  T* bufs = reinterpret_cast<T*>(xs + PARTS * xpart);
+  const size_t buf_elems = buffer_elems<T, C>(ks);
+
+  const int per_image = tiles_y * tiles_x;
+  const int b = blockIdx.x / per_image;
+  const int y0 = (blockIdx.x % per_image) / tiles_x * th;
+  const int x0 = (blockIdx.x % tiles_x) * TW;
   const int tid = threadIdx.x;
-  const int ty = tid / TILE_W;
-  const int tx = tid % TILE_W;
-  const int Hp = H + ks - 1;
-  const int Wp = W + ks - 1;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gr = lane >> 2;  // fragment row group
+  const int tq = lane & 3;   // fragment column pair
+  const int n_rows = min(th, H - y0);
 
-  const T* xb = x + b * sx.b;
-  for (int i = tid; i < C * PH * PW; i += THREADS) {
-    const int c = i / (PH * PW);
-    const int r = (i / PW) % PH;
-    const int col = i % PW;
-    const int gy = y0 + r;
-    const int gx = x0 + col;
-    patch[i] = (gy < Hp && gx < Wp) ? to_float(xb[gy * sx.y + gx * sx.x + c * sx.last]) : 0.f;
-  }
-  stage_taps(htile, h + b * sh.b, sh, y0, x0, H, W, ks, tid);
-  stage_taps(vtile, v + b * sv.b, sv, y0, x0, H, W, ks, tid);
+  sepconv::stage_slab<T, C, THREADS, U>(xs, xpart, x + b * sx.b, sx, y0, x0, geo.rows, geo.kpad, geo.rs,
+                                        TW + ks - 1, H + ks - 1, W + ks - 1, tid);
+
+  auto hbuf = [&](int i) { return bufs + i * buf_elems; };
+  auto vbuf = [&](int i) { return bufs + i * buf_elems + ks * HRS; };
+  auto ghbuf = [&](int i) { return bufs + i * buf_elems + 2 * ks * HRS; };
+  auto gbuf = [&](int i) { return bufs + i * buf_elems + 3 * ks * HRS; };
+
+  // Row yy's h, v and g into buffer i (cp.async where the operand allows).
+  auto stage = [&](int yy, int i) {
+    const int y = y0 + yy;
+    sepconv::stage_rows<T, THREADS>(hbuf(i), HRS, h + b * sh.b + y * sh.y, sh.last, sh.x, ks, x0, TW, W, h_async,
+                                    tid);
+    sepconv::stage_rows<T, THREADS>(vbuf(i), HRS, v + b * sv.b + y * sv.y, sv.last, sv.x, ks, x0, TW, W, v_async,
+                                    tid);
+    sepconv::stage_rows<T, THREADS>(gbuf(i), TW, g + b * sg.b + y * sg.y, sg.last, sg.x, C, x0, TW, W, g_async,
+                                    tid);
+    sepconv::cp_async_commit();
+  };
+
+  // Row yy's unskewed grad_h from buffer i to device memory, the index with
+  // unit stride fastest across threads.
+  auto store_gh = [&](int yy, int i) {
+    const T* src = ghbuf(i);
+    T* dst = gh + b * sgh.b + (y0 + yy) * sgh.y;
+    const bool tap_fastest = sgh.last == 1;
+    for (int e = tid; e < ks * TW; e += THREADS) {
+      const int j = tap_fastest ? e % ks : e / TW;
+      const int xl = tap_fastest ? e / ks : e % TW;
+      if (x0 + xl < W) store(dst + (x0 + xl) * sgh.x + j * sgh.last, to_float(src[j * HRS + xl]));
+    }
+  };
+
+  // Columns past W stay zero in every buffer.
+  sepconv::zero_smem<THREADS>(bufs, nbuf * buf_elems * sizeof(T), tid);
   __syncthreads();
-
-  const int y = y0 + ty;
-  const int xx = x0 + tx;
-  if (y >= H || xx >= W) return;
-
-  float gc[C];
-  const T* gp = g + b * sg.b + y * sg.y + xx * sg.x;
-#pragma unroll
-  for (int c = 0; c < C; ++c) gc[c] = to_float(gp[c * sg.last]);
-
-  // grad_v[f] = sum_c g[c] * sum_j x[c][y+f][x+j] * h[j], BLOCK rows f at a
-  // time so that each h[j] read from shared memory feeds BLOCK*C products.
-  T* gvp = gv + b * sgv.b + y * sgv.y + xx * sgv.x;
-  for (int f0 = 0; f0 < ks; f0 += BLOCK) {
-    const float* rows[BLOCK];
-#pragma unroll
-    for (int r = 0; r < BLOCK; ++r) rows[r] = patch + (ty + min(f0 + r, ks - 1)) * PW + tx;
-    float acc[BLOCK][C] = {};
-#pragma unroll 2
-    for (int j = 0; j < ks; ++j) {
-      const float hv = htile[j * THREADS + tid];
-#pragma unroll
-      for (int r = 0; r < BLOCK; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(rows[r][c * PH * PW + j], hv, acc[r][c]);
+  if (nbuf == 2) stage(0, 0);
+  for (int yy = 0; yy < n_rows; ++yy) {
+    const int cur = nbuf == 2 ? yy & 1 : 0;
+    if (nbuf == 1) stage(yy, 0);
+    sepconv::cp_async_wait_all();
+    __syncthreads();  // row yy is staged; every warp is done with row yy-1 (and yy-2's grad_h buffer)
+    if (nbuf == 2) {
+      if (yy + 1 < n_rows) stage(yy + 1, (yy + 1) & 1);
+      if (yy > 0) store_gh(yy - 1, (yy - 1) & 1);
     }
+    const T* hb = hbuf(cur);
+    const T* vb = vbuf(cur);
+    const T* gb = gbuf(cur);
+    const int y = y0 + yy;
+
+    // grad_v: n-tile n0 of this warp, every channel.
+    {
+      const int n0 = warp * 8;
+      if (x0 + n0 < W) {
+        const int kbase = 16 * (n0 >> 4);
+        const int nch = (n0 + ks + 6 - kbase) / 16 + 1;
+        // B = S_y on the band's k-chunks: b[kc] = (hi b0, hi b1, lo b0, lo b1).
+        uint32_t bf[NCH_MAX][4];
+        const T* hx = hb + n0 + gr;  // column x = n0 + gr of the staged taps
 #pragma unroll
-    for (int r = 0; r < BLOCK; ++r) {
-      if (f0 + r >= ks) break;
-      float sum = 0.f;
+        for (int kc = 0; kc < NCH_MAX; ++kc) {
+          const int j = kbase + 16 * kc + 2 * tq - (n0 + gr);
+          float e[4];
 #pragma unroll
-      for (int c = 0; c < C; ++c) sum = fmaf(gc[c], acc[r][c], sum);
-      store(gvp + (f0 + r) * sgv.last, sum);
+          for (int t = 0; t < 4; ++t) {
+            const int jt = j + (t & 1) + 8 * (t >> 1);
+            e[t] = (kc < nch && jt >= 0 && jt < ks) ? to_float(hx[jt * HRS]) : 0.f;
+          }
+          split_pair(e[0], e[1], bf[kc][0], bf[kc][2]);
+          split_pair(e[2], e[3], bf[kc][1], bf[kc][3]);
+        }
+        const int mts = (ks + 15) / 16;
+        int r0[KC_MAX], r1[KC_MAX];
+#pragma unroll
+        for (int mt = 0; mt < KC_MAX; ++mt) {
+          r0[mt] = (yy + min(16 * mt + gr, ks - 1)) * geo.rs + 2 * tq;
+          r1[mt] = (yy + min(16 * mt + gr + 8, ks - 1)) * geo.rs + 2 * tq;
+        }
+        float out[KC_MAX][4] = {};
+        for (int c = 0; c < C; ++c) {
+          const __nv_bfloat16* xa = xs + size_t(c) * geo.rows * geo.rs;
+          float acc[KC_MAX][4] = {};
+#pragma unroll
+          for (int kc = 0; kc < NCH_MAX; ++kc) {
+            if (kc >= nch) break;
+            const int k = kbase + 16 * kc;
+#pragma unroll
+            for (int mt = 0; mt < KC_MAX; ++mt) {
+              if (mt >= mts) continue;
+              const __nv_bfloat16* p0 = xa + r0[mt] + k;
+              const __nv_bfloat16* p1 = xa + r1[mt] + k;
+              const uint32_t a0 = ld32(p0), a1 = ld32(p1), a2 = ld32(p0 + 8), a3 = ld32(p1 + 8);
+              mma_bf16(acc[mt], a0, a1, a2, a3, bf[kc][0], bf[kc][1]);
+              if (SPLIT) {
+                mma_bf16(acc[mt], ld32(p0 + xpart), ld32(p1 + xpart), ld32(p0 + xpart + 8), ld32(p1 + xpart + 8),
+                         bf[kc][0], bf[kc][1]);
+                mma_bf16(acc[mt], a0, a1, a2, a3, bf[kc][2], bf[kc][3]);
+              }
+            }
+          }
+          const float g0 = to_float(gb[c * TW + n0 + 2 * tq]);
+          const float g1 = to_float(gb[c * TW + n0 + 2 * tq + 1]);
+#pragma unroll
+          for (int mt = 0; mt < KC_MAX; ++mt) {
+            out[mt][0] = fmaf(g0, acc[mt][0], out[mt][0]);
+            out[mt][1] = fmaf(g1, acc[mt][1], out[mt][1]);
+            out[mt][2] = fmaf(g0, acc[mt][2], out[mt][2]);
+            out[mt][3] = fmaf(g1, acc[mt][3], out[mt][3]);
+          }
+        }
+        const int gx = x0 + n0 + 2 * tq;
+        T* op = gv + b * sgv.b + y * sgv.y + gx * sgv.x;
+#pragma unroll
+        for (int mt = 0; mt < KC_MAX; ++mt) {
+          const int f0 = 16 * mt + gr;
+          const int f1 = f0 + 8;
+          if (f0 < ks && gx < W) store(op + f0 * sgv.last, out[mt][0]);
+          if (f0 < ks && gx + 1 < W) store(op + sgv.x + f0 * sgv.last, out[mt][1]);
+          if (f1 < ks && gx < W) store(op + f1 * sgv.last, out[mt][2]);
+          if (f1 < ks && gx + 1 < W) store(op + sgv.x + f1 * sgv.last, out[mt][3]);
+        }
+      }
+    }
+
+    // grad_h: m-tile m0 (16 columns x) of this warp, n-tiles (warp & 1) + 2q.
+    {
+      const int m0 = 16 * (warp >> 1);
+      if (x0 + m0 < W) {
+        const int kcs = (ks + 15) / 16;
+        // A = v[x][f] on k-chunks of 16 taps (zero past ks): (hi a0..a3, lo a0..a3).
+        uint32_t af[KC_MAX][8];
+#pragma unroll
+        for (int kc = 0; kc < KC_MAX; ++kc) {
+          float e[8];
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            // fragment register t/2 (a0: row gr, k 2tq; a1: row gr+8; a2: k+8; a3: both), element t%2
+            const int r = t >> 1;
+            const int f = 16 * kc + 2 * tq + (t & 1) + 8 * (r >> 1);
+            const int xl = m0 + gr + 8 * (r & 1);
+            e[t] = (kc < kcs && f < ks) ? to_float(vb[f * HRS + xl]) : 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) split_pair(e[2 * r], e[2 * r + 1], af[kc][r], af[kc][4 + r]);
+        }
+        const int i8 = lane >> 3;  // ldmatrix: this lane's row address is row lane%8 of matrix lane/8
+        int frow[KC_MAX / 2];
+#pragma unroll
+        for (int p = 0; p < KC_MAX / 2; ++p) frow[p] = (yy + min(32 * p + 8 * i8 + (lane & 7), ks - 1)) * geo.rs;
+        float ph[NQ][4] = {};
+        for (int c = 0; c < C; ++c) {
+          const __nv_bfloat16* xa = xs + size_t(c) * geo.rows * geo.rs;
+          const float g0 = to_float(gb[c * TW + m0 + gr]);
+          const float g1 = to_float(gb[c * TW + m0 + gr + 8]);
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const int nt = (warp & 1) + 2 * q;
+            if (nt >= geo.nth) break;
+            const int un = m0 + 8 * nt;
+            float acc[4] = {};
+#pragma unroll
+            for (int p = 0; p < KC_MAX / 2; ++p) {
+              if (2 * p >= kcs) break;
+              uint32_t bh[4];
+              sepconv::ldmatrix_x4_trans(bh, xa + frow[p] + un);
+              const uint32_t* a = af[2 * p];
+              const uint32_t* a2 = af[2 * p + 1];
+              mma_bf16(acc, a[0], a[1], a[2], a[3], bh[0], bh[1]);
+              if (2 * p + 1 < kcs) mma_bf16(acc, a2[0], a2[1], a2[2], a2[3], bh[2], bh[3]);
+              if (SPLIT) {
+                uint32_t bl[4];
+                sepconv::ldmatrix_x4_trans(bl, xa + xpart + frow[p] + un);
+                mma_bf16(acc, a[4], a[5], a[6], a[7], bh[0], bh[1]);
+                mma_bf16(acc, a[0], a[1], a[2], a[3], bl[0], bl[1]);
+                if (2 * p + 1 < kcs) {
+                  mma_bf16(acc, a2[4], a2[5], a2[6], a2[7], bh[2], bh[3]);
+                  mma_bf16(acc, a2[0], a2[1], a2[2], a2[3], bl[2], bl[3]);
+                }
+              }
+            }
+            ph[q][0] = fmaf(g0, acc[0], ph[q][0]);
+            ph[q][1] = fmaf(g0, acc[1], ph[q][1]);
+            ph[q][2] = fmaf(g1, acc[2], ph[q][2]);
+            ph[q][3] = fmaf(g1, acc[3], ph[q][3]);
+          }
+        }
+        // Unskew: P[x][u] is grad_h[x][j = u - x].
+        T* gd = ghbuf(cur);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int nt = (warp & 1) + 2 * q;
+          if (nt >= geo.nth) break;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int xl = m0 + gr + 8 * (t >> 1);
+            const int j = m0 + 8 * nt + 2 * tq + (t & 1) - xl;
+            if (j >= 0 && j < ks) to_smem(gd + j * HRS + xl, ph[q][t]);
+          }
+        }
+      }
+    }
+    if (nbuf == 1) {
+      __syncthreads();  // row yy's grad_h is in its buffer
+      store_gh(yy, 0);
     }
   }
-
-  // grad_h[j] = sum_c g[c] * sum_f v[f] * x[c][y+f][x+j], BLOCK taps j at a
-  // time so that each v[f] read feeds BLOCK*C products.
-  T* ghp = gh + b * sgh.b + y * sgh.y + xx * sgh.x;
-  for (int j0 = 0; j0 < ks; j0 += BLOCK) {
-    const float* cols[BLOCK];
-#pragma unroll
-    for (int r = 0; r < BLOCK; ++r) cols[r] = patch + ty * PW + tx + min(j0 + r, ks - 1);
-    float acc[BLOCK][C] = {};
-#pragma unroll 2
-    for (int f = 0; f < ks; ++f) {
-      const float vv = vtile[f * THREADS + tid];
-#pragma unroll
-      for (int r = 0; r < BLOCK; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(cols[r][c * PH * PW + f * PW], vv, acc[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < BLOCK; ++r) {
-      if (j0 + r >= ks) break;
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) sum = fmaf(gc[c], acc[r][c], sum);
-      store(ghp + (j0 + r) * sgh.last, sum);
-    }
+  if (nbuf == 2 && n_rows > 0) {
+    __syncthreads();
+    store_gh(n_rows - 1, (n_rows - 1) & 1);
   }
 }
 
 struct BwdVH {
   template <typename T, int C>
   static cudaError_t run(const void* x, const void* v, const void* h, const void* g, void* gv, void* gh,
-                         Strides sx, Strides sv, Strides sh, Strides sg, Strides sgv, Strides sgh, int B,
-                         int H, int W, int ks, cudaStream_t stream) {
-    const int tiles_x = (W + TILE_W - 1) / TILE_W;
-    const int tiles_y = (H + TILE_H - 1) / TILE_H;
-    const size_t smem =
-        sizeof(float) * (size_t(C) * (TILE_H + ks - 1) * (TILE_W + ks - 1) + 2 * size_t(ks) * THREADS);
-    return sepconv::launch_kernel(sepconv_bwd_vh_kernel<T, C>, (long long)B * tiles_x * tiles_y, THREADS,
-                                  smem, stream, static_cast<const T*>(x), static_cast<const T*>(v),
-                                  static_cast<const T*>(h), static_cast<const T*>(g), static_cast<T*>(gv),
-                                  static_cast<T*>(gh), sx, sv, sh, sg, sgv, sgh, H, W, ks, tiles_x, tiles_y);
+                         Strides sx, Strides sv, Strides sh, Strides sg, Strides sgv, Strides sgh, int B, int H,
+                         int W, int ks, cudaStream_t stream) {
+    if (ks > 16 * KC_MAX) return cudaErrorInvalidValue;
+    // Two staging buffers at the largest row tile that fits, else one.
+    Geometry geo{};
+    bool found = false;
+    for (int nbuf : {2, 1}) {
+      for (int th : {16, 8, 4, 2, 1}) {
+        if (!found && smem_bytes<T, C>(geometry(ks, th, nbuf)) <= SMEM_MAX) {
+          geo = geometry(ks, th, nbuf);
+          found = true;
+        }
+      }
+    }
+    if (!found) return cudaErrorInvalidValue;  // float32 with 4 channels at large ks
+    const int tiles_x = (W + TW - 1) / TW;
+    const int tiles_y = (H + geo.th - 1) / geo.th;
+    const int eb = sizeof(T);
+    return sepconv::launch_kernel(
+        sepconv_bwd_vh_kernel<T, C>, (long long)B * tiles_y * tiles_x, THREADS, smem_bytes<T, C>(geo), stream,
+        static_cast<const T*>(x), static_cast<const T*>(v), static_cast<const T*>(h), static_cast<const T*>(g),
+        static_cast<T*>(gv), static_cast<T*>(gh), sx, sv, sh, sg, sgv, sgh, H, W, ks, geo.th, geo.nbuf, tiles_y,
+        tiles_x, sepconv::async_ok(v, sv, eb), sepconv::async_ok(h, sh, eb), sepconv::async_ok(g, sg, eb, C));
   }
 };
 

@@ -46,13 +46,18 @@
 #include <initializer_list>
 #include <type_traits>
 
-#include "sepconv_common.cuh"
+#include "sepconv_mma.cuh"
 
 namespace {
 
+using sepconv::ld2;
+using sepconv::ld32;
+using sepconv::mma_bf16;
+using sepconv::put_split;
 using sepconv::Strides;
 using sepconv::store;
 using sepconv::to_float;
+using sepconv::to_smem;
 
 constexpr int TW = 128;  // output columns per block (the TPU kernel's column tile)
 constexpr int WARPS = 16;  // one n-tile each
@@ -98,37 +103,6 @@ __device__ __forceinline__ void tap_col(int i, int ks, bool tap_unit_stride, int
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void to_smem(float* p, float a) { *p = a; }
-__device__ __forceinline__ void to_smem(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
-
-// Write a (exact in bf16 for bf16 operands) as hi, and for float32 its
-// remainder as lo.
-template <bool SPLIT>
-__device__ __forceinline__ void put_split(__nv_bfloat16* hi, __nv_bfloat16* lo, size_t i, float a) {
-  const __nv_bfloat16 ah = __float2bfloat16_rn(a);
-  hi[i] = ah;
-  if (SPLIT) lo[i] = __float2bfloat16_rn(a - __bfloat162float(ah));
-}
-
-// D += A * B, m16n8k16, bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 template <typename T, int C>
 __global__ void __launch_bounds__(THREADS)
 sepconv_fwd_mxu_kernel(const T* __restrict__ x, const T* __restrict__ v, const T* __restrict__ h,
@@ -158,28 +132,9 @@ sepconv_fwd_mxu_kernel(const T* __restrict__ x, const T* __restrict__ v, const T
   const int ku = TW + ks - 1;  // slab columns that carry data
 
   // The input slab, every channel; columns past the slab's TW+ks-1 and rows
-  // or columns past the padded image are zero.  Each thread keeps U loads in
-  // flight.
-  const T* xb = x + b * sx.b;
-  const int n_slab = C * g.rows * g.kpad;
-  for (int base = tid; base < n_slab; base += U * THREADS) {
-    float a[U];
-#pragma unroll
-    for (int k = 0; k < U; ++k) {
-      const int i = base + k * THREADS;
-      const int c = i / (g.rows * g.kpad);
-      const int gy = y0 + (i / g.kpad) % g.rows;
-      const int u = i % g.kpad;
-      const int gx = x0 + u;
-      a[k] = (i < n_slab && u < ku && gy < Hp && gx < Wp) ? to_float(xb[gy * sx.y + gx * sx.x + c * sx.last])
-                                                          : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < U; ++k) {
-      const int i = base + k * THREADS;
-      if (i < n_slab) put_split<SPLIT>(xs, xs + xpart, size_t(i / g.kpad) * g.rs + i % g.kpad, a[k]);
-    }
-  }
+  // or columns past the padded image are zero.
+  sepconv::stage_slab<T, C, THREADS, U>(xs, xpart, x + b * sx.b, sx, y0, x0, g.rows, g.kpad, g.rs, ku, Hp, Wp,
+                                        tid);
   const int s_words = int(PARTS * spart / 2);
   for (int i = tid; i < s_words; i += THREADS) reinterpret_cast<uint32_t*>(ss)[i] = 0u;
 

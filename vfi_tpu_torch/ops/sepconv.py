@@ -200,6 +200,136 @@ def _sepconv_mxu_tiled(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> tor
     return torch.cat(tiles, dim=2)[:, :, :W].to(x.dtype)
 
 
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _split_products(a: torch.Tensor, b: torch.Tensor, split_a: bool, split_b: bool):
+    """The operand pairs whose products the kernels sum: float32 operands as
+    their bf16 (hi, lo) split, ``hi*hi + lo*hi + hi*lo`` (or ``a*hi + a*lo``
+    where only ``b`` is split); bf16 values as they are."""
+    if not split_b:
+        return ((a, b),)
+    b_hi, b_lo = _split_bf16(b)
+    if not split_a:
+        return ((a, b_hi), (a, b_lo))
+    a_hi, a_lo = _split_bf16(a)
+    return ((a_hi, b_hi), (a_lo, b_hi), (a_hi, b_lo))
+
+
+# The adjoint kernels' tiles: ``csrc/sepconv_bwd_vh.cu`` takes TH output rows
+# (16, or fewer where shared memory runs out) by TW=128 columns;
+# ``csrc/sepconv_bwd_x.cu`` takes TS=64 by TU=128 input pixels.
+BWD_VH_TILE = (16, 128)
+BWD_X_TILE = (64, 128)
+
+
+def _sepconv_bwd_vh_tiled(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
+                          tile_h: int = BWD_VH_TILE[0], tile_w: int = BWD_VH_TILE[1]):
+    """Torch emulation of ``sepconv_bwd_vh.cu``'s tiling and arithmetic, for
+    the tests: it is on no path.  ``tile_w`` is a multiple of 16.
+
+    Per column tile of ``tile_w`` (the last zero-padded) and row tile of
+    ``tile_h``, the slab holds the tile's ``tile_w+ks-1`` input columns (zero
+    past them) in K = ``kpad`` columns.  grad_v: per output row, the slab rows
+    f (padded to a multiple of 16 by repeating row ks-1) times
+    S[x, u] = h[x, u-x] kept only on the k-chunks of 16 that the band of x's
+    n-tile of 8 meets.  grad_h: v (taps zero-padded to a multiple of 16) times
+    the slab, kept for each m-tile of 16 columns on its ``8*nth`` input
+    columns, unskewed.  g multiplies the float32 sums of each channel.
+    float32 operands multiply as the bf16 split ``hi*hi + lo*hi + hi*lo``.
+    """
+    B, H, W, C, ks = _check_shapes(x, v, h)
+    _check_cotangent(g, B, H, W, C)
+    tw, split, dev = tile_w, x.dtype != torch.bfloat16, x.device
+    nw = -(-W // tw)
+    nth = (ks + 22) // 8
+    ku = tw + ks - 1
+    kpad = max(_ceil16(ku), _ceil16(tw - 16 + 8 * nth))
+    mp = _ceil16(ks)
+    xf = F.pad(_wide(x), (0, 0, 0, (nw - 1) * tw + ku - x.shape[2]))
+    vf = F.pad(_wide(v), (0, mp - ks, 0, nw * tw - W))  # [B, H, nw*tw, mp]
+    hf = F.pad(_wide(h), (0, 0, 0, nw * tw - W))
+    gf = F.pad(_wide(g), (0, 0, 0, nw * tw - W))
+    xl = torch.arange(tw, device=dev)
+    u = torch.arange(kpad, device=dev)
+    n0 = xl // 8 * 8
+    kbase = n0 // 16 * 16
+    nch = (n0 + ks + 6 - kbase) // 16 + 1
+    v_chunks = (u >= kbase[:, None]) & (u < (kbase + 16 * nch)[:, None])  # [tw, kpad]
+    m0 = xl // 16 * 16
+    h_cols = (u >= m0[:, None]) & (u < (m0 + 8 * nth)[:, None])  # [tw, kpad]
+    band = (xl[:, None] + torch.arange(ks, device=dev)).expand(B, 1, tw, ks)
+    taps = torch.arange(mp, device=dev).clamp(max=ks - 1)
+    grad_v = torch.zeros((B, H, nw * tw, ks), dtype=xf.dtype, device=dev)
+    grad_h = torch.zeros_like(grad_v)
+    for j in range(nw):
+        cols = slice(j * tw, (j + 1) * tw)
+        xs = F.pad(xf[:, :, j * tw : j * tw + ku], (0, 0, 0, kpad - ku))  # [B, Hp, kpad, C]
+        for y0 in range(0, H, tile_h):
+            n = min(tile_h, H - y0)
+            rows = slice(y0, y0 + n)
+            slab = xs[:, y0 + torch.arange(n, device=dev)[:, None] + taps]  # [B, n, mp, kpad, C]
+            st = torch.zeros((B, n, tw, kpad), dtype=xf.dtype, device=dev)
+            st.scatter_(-1, band.expand(B, n, tw, ks), hf[:, rows, cols])
+            st = st * v_chunks
+            inner = sum(torch.einsum("bnfuc,bnxu->bnfxc", a, s) for a, s in _split_products(slab, st, split, split))
+            gg = gf[:, rows, cols]
+            grad_v[:, rows, cols] = torch.einsum("bnfxc,bnxc->bnxf", inner, gg)[..., :ks]
+            vv = vf[:, rows, cols]
+            P = sum(torch.einsum("bnxf,bnfuc->bnxuc", a, s) for a, s in _split_products(vv, slab, split, split))
+            P = torch.einsum("bnxuc,bnxc->bnxu", P, gg) * h_cols
+            grad_h[:, rows, cols] = _unskew_rows(P, ks)
+    return grad_v[:, :, :W].to(v.dtype), grad_h[:, :, :W].to(h.dtype)
+
+
+def _sepconv_bwd_x_tiled(v: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
+                         tile_s: int = BWD_X_TILE[0], tile_u: int = BWD_X_TILE[1]) -> torch.Tensor:
+    """Torch emulation of ``sepconv_bwd_x.cu``'s tiling and arithmetic, for
+    the tests: it is on no path.  ``tile_s`` is a multiple of 16, ``tile_u``
+    of 8.
+
+    Per input tile ``[s0, s0+tile_s) x [u0, u0+tile_u)`` of the padded grid,
+    the sum over the output rows y that reach it of A_y @ B_y, with
+    A_y[s, x] = v[y, x, s-y] and B_y[x, u] = g[y, x, c] * h[y, x, u-x] over the
+    window of input columns x from u0-ks+1 rounded down to a multiple of 8,
+    B kept for each n-tile of 8 columns u on the k-chunks of 16 its band
+    meets.  B is split into bf16 hi + lo in both dtypes; float32 also splits
+    A (``hi*hi + hi*lo + lo*hi``).
+    """
+    B, H, W, C, ks = _check_adjoint_shapes(v, h, g)
+    ts, tu, split, dev = tile_s, tile_u, g.dtype != torch.bfloat16, g.device
+    Hp, Wp = H + ks - 1, W + ks - 1
+    xwin = _ceil16(tu + ks + 6)
+    vf, hf, gf = _wide(v), _wide(h), _wide(g)
+    out = torch.zeros((B, -(-Hp // ts) * ts, -(-Wp // tu) * tu, C), dtype=vf.dtype, device=dev)
+    xl = torch.arange(xwin, device=dev)
+    ul = torch.arange(tu, device=dev)
+    for s0 in range(0, Hp, ts):
+        ys = torch.arange(max(0, s0 - ks + 1), min(H - 1, s0 + ts - 1) + 1, device=dev)
+        f = s0 + torch.arange(ts, device=dev) - ys[:, None]  # [Y, ts]
+        for u0 in range(0, Wp, tu):
+            xw = (u0 - ks + 1) // 8 * 8
+            d = u0 - xw
+            x = xw + xl
+            x_in = ((x >= 0) & (x < W)).to(vf.dtype)
+            xc = x.clamp(0, W - 1)
+            nl = ul // 8 * 8
+            kbase = (d + nl - ks + 1) // 16 * 16
+            nch = (d + nl + 7 - kbase) // 16 + 1
+            j = d + ul - xl[:, None]  # [xwin, tu]
+            keep = (j >= 0) & (j < ks) & (xl[:, None] >= kbase) & (xl[:, None] < kbase + 16 * nch)
+            vw = vf[:, ys][:, :, xc] * x_in[:, None]  # [B, Y, xwin, ks]
+            a = vw.gather(-1, f.clamp(0, ks - 1)[:, None, :].expand(B, -1, xwin, -1))  # [B, Y, xwin, ts]
+            a = (a * ((f >= 0) & (f < ks))[:, None, :]).transpose(-1, -2)  # [B, Y, ts, xwin]
+            hw = hf[:, ys][:, :, xc]
+            bh = hw.gather(-1, j.clamp(0, ks - 1).expand(B, len(ys), xwin, tu)) * keep  # [B, Y, xwin, tu]
+            bc = bh[..., None] * (gf[:, ys][:, :, xc] * x_in[:, None])[:, :, :, None, :]  # [B, Y, xwin, tu, C]
+            out[:, s0 : s0 + ts, u0 : u0 + tu] = sum(
+                torch.einsum("bysx,byxuc->bsuc", p, q) for p, q in _split_products(a, bc, split, True))
+    return out[:, :Hp, :Wp].to(g.dtype)
+
+
 def sepconv_bwd_vh_plain(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor,
                          g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Adjoints for the per-pixel kernels, summed over channels (banded form):
