@@ -15,7 +15,8 @@ tensor-core kernel by default (``"pallas_mxu"``), the direct kernel under
 
   1. device      — the card's name and count; fails without CUDA.
   2. build       — compiles every CUDA kernel from ``vfi_tpu_torch/ops/csrc``
-                   (four sources), all nvcc processes at once.
+                   (four sources), all nvcc processes at once; fails if ptxas
+                   reports a spill in any instantiation.
   3. kernel      — each kernel against its plain PyTorch version on the card:
                    f32 (TF32 off) within 1e-4 * max(1, max|ref|); bf16 within
                    one bf16 ulp of the f32 plain version on the same bf16
@@ -52,8 +53,9 @@ tensor-core kernel by default (``"pallas_mxu"``), the direct kernel under
                    and peak device memory.
  11. train_color — TAI_color 256x320 B=4 in bf16: the same counts and times.
  12. timing      — CUDA-event times of each kernel, its plain version and the
-                   serving forwards (the adjoints at both training shapes;
-                   with ``--baseline``, another checkout's adjoint kernels in
+                   serving forwards (the forwards at both serving and both
+                   training shapes, the adjoints at both training shapes;
+                   with ``--baseline``, another checkout's four kernels in
                    turns with these); a ``kernels`` line with each kernel's
                    numbers.
 
@@ -70,6 +72,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -420,6 +423,8 @@ def phase_kernel_checks(gen) -> dict:
         (320, 128, 128, 1, KS),  # TAI_gray serving, B=64
         (80, 256, 320, 3, KS),  # TAI_color at 256x320, serving B=16
         (3, 37, 45, 3, 4),  # ragged, even ks
+        (2, 37, 137, 3, KS),  # ragged at the full tap count: W a multiple of neither kernel's column tile
+        (2, 19, 40, 4, KS),  # four channels at the full tap count (the banded f32 tiles: 4 rows a block)
     ]
     for BT, H, W, C, ks in cases:
         x, v, h = sepconv_operands(BT, H, W, C, ks, torch.float32, gen)
@@ -718,22 +723,38 @@ def phase_train_color(gen) -> dict:
     return launches
 
 
+# The forwards' main-path shapes (B*T, H, W, C): TAI_gray serving at B=64 and
+# training at B=8, TAI_color serving at B=16 and training at B=4.
+FORWARD_SHAPES = {"gray": (320, 128, 128, 1), "gray_train": (40, 128, 128, 1), "color": (80, 256, 320, 3),
+                  "color_train": (20, 256, 320, 3)}
+
+
+def timed_in_turns(kernel, args, baseline=None, iters=10):
+    """(ms, baseline_ms) of ``kernel(*args)``, launches uncounted; with a
+    ``baseline`` callable the two are timed in turns (baseline, kernel,
+    kernel, baseline) and each time is the mean of its two turns, else
+    baseline_ms is None."""
+    with uncounted():
+        if baseline is None:
+            return cuda_ms(lambda: kernel(*args), iters=iters), None
+        b0 = cuda_ms(lambda: baseline(*args), iters=iters)
+        ms = (cuda_ms(lambda: kernel(*args), iters=iters) + cuda_ms(lambda: kernel(*args), iters=iters)) / 2
+        return ms, (b0 + cuda_ms(lambda: baseline(*args), iters=iters)) / 2
+
+
 def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict, gen, baseline=None):
-    # TAI_gray serving at B=64 and training at B=8, TAI_color serving at B=16
-    shapes = {"gray": (320, 128, 128, 1), "gray_train": (40, 128, 128, 1), "color": (80, 256, 320, 3)}
     fwd = {}
-    for shape_name, (BT, H, W, C) in shapes.items():
+    for shape_name, (BT, H, W, C) in FORWARD_SHAPES.items():
         for dtype in (torch.bfloat16, torch.float32):
             x, v, h = sepconv_operands(BT, H, W, C, KS, dtype, gen)
             bound, by = sepconv_bound_ms(x, v, h, peak)
             for name, (kernel, plain, _) in FORWARDS.items():
-                with uncounted():
-                    ms = cuda_ms(lambda: kernel(x, v, h), iters=10)
+                ms, base_ms = timed_in_turns(kernel, (x, v, h), baseline and baseline[name])
                 plain_ms = cuda_ms(lambda: plain(x, v, h), iters=2, warmup=1)
-                fwd[name, shape_name, dtype] = (ms, plain_ms, bound, by)
+                fwd[name, shape_name, dtype] = (ms, plain_ms, bound, by, base_ms)
                 emit("timing_kernel", kernel=name, dtype=str(dtype), shape=[BT, H, W, C, KS], ms=ms,
                      plain=plain.__name__, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                     achieved_over_bound=bound / ms)
+                     achieved_over_bound=bound / ms, baseline_ms=base_ms)
                 torch.cuda.empty_cache()
             del x, v, h
             torch.cuda.empty_cache()
@@ -762,12 +783,19 @@ def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict
 
     kernels = []
     for name, (_, plain, line) in FORWARDS.items():
-        ms16, plain16, bound16, by16 = fwd[name, "gray", torch.bfloat16]
-        ms32, plain32, bound32, by32 = fwd[name, "gray", torch.float32]
-        c16, cplain16, cbound16, _ = fwd[name, "color", torch.bfloat16]
-        c32, cplain32, cbound32, _ = fwd[name, "color", torch.float32]
-        t16, _, tbound16, _ = fwd[name, "gray_train", torch.bfloat16]
+        ms16, plain16, bound16, by16, _ = fwd[name, "gray", torch.bfloat16]
+        ms32, plain32, bound32, by32, _ = fwd[name, "gray", torch.float32]
+        c16, cplain16, cbound16, _, _ = fwd[name, "color", torch.bfloat16]
+        c32, cplain32, cbound32, _, _ = fwd[name, "color", torch.float32]
+        t16, _, tbound16, _, _ = fwd[name, "gray_train", torch.bfloat16]
+        ct16, ctplain16, ctbound16, _, _ = fwd[name, "color_train", torch.bfloat16]
+        ct32, ctplain32, ctbound32, _, _ = fwd[name, "color_train", torch.float32]
         total, by_path = launches(name)
+        baseline_keys = {} if baseline is None else {
+            f"{prefix}baseline_ms{suffix}": fwd[name, shape_name, dtype][4]
+            for prefix, shape_name in (("", "gray"), ("color_", "color"), ("train_", "gray_train"),
+                                       ("color_train_", "color_train"))
+            for suffix, dtype in (("", torch.bfloat16), ("_f32", torch.float32))}
         kernels.append({
             "name": name, "route": "cuda", "source": f"vfi_tpu_torch/ops/csrc/{name}.cu",
             "replaces": f"vfi_tpu/ops/sepconv.py:{line}", "launches": total, "launches_by_path": by_path,
@@ -777,7 +805,9 @@ def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict
             "color_shape": [80, 256, 320, 3, KS], "color_ms": c16, "color_plain_ms": cplain16,
             "color_bound_ms": cbound16, "color_ms_f32": c32, "color_plain_ms_f32": cplain32,
             "color_bound_ms_f32": cbound32, "train_shape": [40, H, W, 1, KS], "train_ms": t16,
-            "train_bound_ms": tbound16,
+            "train_bound_ms": tbound16, "color_train_shape": [20, 256, 320, 3, KS], "color_train_ms": ct16,
+            "color_train_plain_ms": ctplain16, "color_train_bound_ms": ctbound16, "color_train_ms_f32": ct32,
+            "color_train_plain_ms_f32": ctplain32, "color_train_bound_ms_f32": ctbound32, **baseline_keys,
         })
     for name, line in (("sepconv_bwd_vh", 608), ("sepconv_bwd_x", 729)):
         ms16, plain16, bound16, by16, base16 = adj[name, "gray_train", torch.bfloat16]
@@ -807,9 +837,9 @@ def time_adjoints(peak, gen, baseline=None) -> dict:
     ``ADJOINT_SHAPES`` in bf16 and f32, with their bounds; emits a
     ``timing_kernel`` line each.  Returns {(name, shape, dtype): (ms,
     plain_ms, bound_ms, bound_by, baseline_ms)}.  ``baseline``
-    (:func:`baseline_adjoints`) is an earlier build of the same kernels, timed
-    in turns with these (baseline, kernel, kernel, baseline); baseline_ms is
-    None without it."""
+    (:func:`baseline_kernels`) is an earlier build of the same kernels, timed
+    in turns with these (:func:`timed_in_turns`); baseline_ms is None without
+    it."""
     adj = {}
     for shape_name, (BT, H, W, C) in ADJOINT_SHAPES.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -823,14 +853,7 @@ def time_adjoints(peak, gen, baseline=None) -> dict:
             }
             for name, (kernel, plain, (bound, by)) in runs.items():
                 a = args[name]
-                base_ms = None
-                with uncounted():
-                    if baseline is None:
-                        ms = cuda_ms(lambda: kernel(*a), iters=10)
-                    else:
-                        b0 = cuda_ms(lambda: baseline[name](*a), iters=10)
-                        ms = (cuda_ms(lambda: kernel(*a), iters=10) + cuda_ms(lambda: kernel(*a), iters=10)) / 2
-                        base_ms = (b0 + cuda_ms(lambda: baseline[name](*a), iters=10)) / 2
+                ms, base_ms = timed_in_turns(kernel, a, baseline and baseline[name])
                 plain_ms = cuda_ms(lambda: plain(*a), iters=3, warmup=1)
                 adj[name, shape_name, dtype] = (ms, plain_ms, bound, by, base_ms)
                 emit("timing_kernel", kernel=name, dtype=str(dtype), shape=[BT, H, W, C, KS], ms=ms,
@@ -861,6 +884,34 @@ def build_library(src: str, out_dir: str, entry: str, n_tensors: int):
     return fn, [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
 
 
+def build_variants(wanted: dict) -> dict:
+    """Build variants of the port's kernels, every nvcc process at once.
+    ``wanted`` maps (kernel, variant) to a list of (file, old, new): ``file``
+    is the kernel's source (``"kernel"``) or one of ``_kernels.HEADERS``, in
+    which every ``old`` is replaced by ``new``.  Each variant is written with
+    the headers into its own ``vfi_tpu_torch/_build/variants/<kernel>-<variant>/``.
+    Returns {(kernel, variant): (C entry, ptxas lines)}."""
+    import shutil
+
+    jobs = []
+    for (kernel, name), patches in wanted.items():
+        out_dir = _kernels.BUILD_DIR / "variants" / f"{kernel}-{name}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        src = _kernels.SOURCES[kernel]
+        for f in (src, *_kernels.HEADERS):
+            shutil.copy(_kernels.CSRC / f, out_dir / f)
+        for f, old, new in patches:
+            path = out_dir / (src if f == "kernel" else f)
+            text = path.read_text()
+            if old not in text:
+                raise SystemExit(f"variant {kernel}/{name}: {old!r} is not in {path.name}")
+            path.write_text(text.replace(old, new))
+        jobs.append((str(out_dir / src), str(out_dir), kernel))
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(jobs))) as pool:
+        built = list(pool.map(lambda j: build_library(j[0], j[1], j[2], _kernels._N_TENSORS[j[2]]), jobs))
+    return dict(zip(wanted, built))
+
+
 def call_library(fn, tensors, B, H, W, C, ks) -> None:
     rc = fn(*(t.data_ptr() for t in tensors), *(s for t in tensors for s in t.stride()), B, H, W, C, ks,
             _kernels._DTYPE_CODE[tensors[0].dtype], torch.cuda.current_stream().cuda_stream)
@@ -868,17 +919,24 @@ def call_library(fn, tensors, B, H, W, C, ks) -> None:
         raise SystemExit(f"chip_smoke: launch failed: CUDA error {rc}")
 
 
-def baseline_adjoints(checkout: str) -> dict:
-    """The two adjoint kernels of another checkout of this repo (an earlier
-    commit, whose C entries take the same arguments), built into
+def baseline_kernels(checkout: str) -> dict:
+    """The four kernels of another checkout of this repo (an earlier commit,
+    whose C entries take the same arguments), built into
     ``vfi_tpu_torch/_build/baseline/`` and wrapped as the port's wrappers are."""
     csrc = os.path.join(checkout, "vfi_tpu_torch", "ops", "csrc")
     out_dir = os.path.join(str(_kernels.BUILD_DIR), "baseline")
-    with concurrent.futures.ThreadPoolExecutor() as pool:  # both nvcc processes at once
-        (vh, vh_log), (bx, bx_log) = pool.map(
-            lambda e: build_library(os.path.join(csrc, f"{e[0]}.cu"), out_dir, *e),
-            [("sepconv_bwd_vh", 6), ("sepconv_bwd_x", 4)])
-    emit("baseline_build", checkout=checkout, ptxas={"sepconv_bwd_vh": vh_log, "sepconv_bwd_x": bx_log})
+    with concurrent.futures.ThreadPoolExecutor() as pool:  # every nvcc process at once
+        built = dict(zip(KERNELS, pool.map(
+            lambda k: build_library(os.path.join(csrc, f"{k}.cu"), out_dir, k, _kernels._N_TENSORS[k]), KERNELS)))
+    emit("baseline_build", checkout=checkout, ptxas={k: log for k, (_, log) in built.items()})
+    (fm, _), (fd, _), (vh, _), (bx, _) = (built[k] for k in KERNELS)
+
+    def forward(fn):
+        def run(x, v, h):
+            out = torch.empty((*v.shape[:3], x.shape[-1]), dtype=x.dtype, device=x.device)
+            call_library(fn, (x, v, h, out), *v.shape[:3], x.shape[-1], v.shape[-1])
+            return out
+        return run
 
     def bwd_vh(x, v, h, g):
         gv, gh = torch.empty_like(v), torch.empty_like(h)
@@ -891,7 +949,8 @@ def baseline_adjoints(checkout: str) -> dict:
         call_library(bx, (v, h, g, gx), B, H, W, g.shape[-1], ks)
         return gx
 
-    return {"sepconv_bwd_vh": bwd_vh, "sepconv_bwd_x": bwd_x}
+    return {"sepconv_fwd_mxu": forward(fm), "sepconv_fwd": forward(fd), "sepconv_bwd_vh": bwd_vh,
+            "sepconv_bwd_x": bwd_x}
 
 
 def _serve_timing(ip, key, impl, dtype, B, T, H, W, C, gen) -> None:
@@ -910,8 +969,8 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
     ap.add_argument("--baseline", metavar="CHECKOUT",
-                    help="another checkout of this repo (an earlier commit): time its two adjoint kernels in "
-                         "turns with these, as baseline_* keys of the kernels line")
+                    help="another checkout of this repo (an earlier commit): time its four kernels in turns "
+                         "with these, as baseline_* keys of the timing_kernel and kernels lines")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU", file=sys.stderr)
@@ -931,7 +990,10 @@ def main(argv) -> int:
              for n in _kernels.SOURCES}
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0, ptxas=ptxas)
     gate(len(_kernels.SOURCES) == len(KERNELS), f"built {sorted(_kernels.SOURCES)}, the path runs {KERNELS}")
-    baseline = baseline_adjoints(os.path.abspath(args.baseline)) if args.baseline else None
+    spills = {n: [ln for ln in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+              for n, lines in ptxas.items()}
+    gate(not any(spills.values()), f"ptxas reports spills: {spills}")
+    baseline = baseline_kernels(os.path.abspath(args.baseline)) if args.baseline else None
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = phase_kernel_checks(gen)

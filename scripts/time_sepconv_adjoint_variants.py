@@ -6,7 +6,7 @@
 Each variant is ``vfi_tpu_torch/ops/csrc/sepconv_bwd_vh.cu`` or
 ``sepconv_bwd_x.cu`` with a few lines replaced (``VARIANTS`` below), built by
 nvcc with the port's flags into ``vfi_tpu_torch/_build/variants/`` (all at
-once) and launched through its C entry.  Variants that take work away show
+once, ``chip_smoke.build_variants``) and launched through its C entry.  Variants that take work away show
 where the time goes: ``no_products`` skips the tensor-core products (the
 staging, barriers and epilogues remain), ``stage_once`` stages the first
 rows only (the slab, products and epilogues remain); ``no_overlap`` waits for
@@ -24,10 +24,8 @@ kernel, shape and dtype; the card's name and power limit last.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import json
 import os
-import shutil
 import subprocess
 import sys
 
@@ -37,7 +35,6 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from vfi_tpu_torch.ops import _kernels  # noqa: E402
 from vfi_tpu_torch.ops import sepconv as sepconv_ops  # noqa: E402
 
 VH_STAGE = "if (yy + 1 < n_rows) stage(yy + 1, (yy + 1) & 1);"
@@ -45,7 +42,8 @@ X_STAGE = "if (y < yhi) stage(y + 1, cur ^ 1);"
 VARIANTS = {  # kernel -> variant -> [(old, new)]
     "sepconv_bwd_vh": {
         "as_built": [],
-        "no_products": [("mma_bf16(acc", "if (ks < 0) mma_bf16(acc")],
+        "no_products": [("mma_bf16(acc, a", "if (ks < 0) mma_bf16(acc, a"),
+                        ("mma_bf16(acc[mt],", "if (ks < 0) mma_bf16(acc[mt],")],
         "stage_once": [("    const int y = y0 + yy;\n    sepconv::stage_rows",
                         "    if (yy > 1) return sepconv::cp_async_commit();\n    const int y = y0 + yy;\n"
                         "    sepconv::stage_rows")],
@@ -63,32 +61,19 @@ VARIANTS = {  # kernel -> variant -> [(old, new)]
     },
 }
 WRONG_BY_DESIGN = ("no_products", "stage_once")
-N_TENSORS = {"sepconv_bwd_vh": 6, "sepconv_bwd_x": 4}
+# Patches whose text lives in a shared header: bwd_vh's grad_v products are
+# the forward's horizontal pass in sepconv_mma.cuh.
+HEADER_PATCHES = {"mma_bf16(acc[mt],": "sepconv_mma.cuh"}
 
 
 def build(wanted):
     """Build every (kernel, variant) in ``wanted`` at once; returns their C entries."""
-    out_dir = _kernels.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for header in _kernels.HEADERS:
-        shutil.copy(_kernels.CSRC / header, out_dir / header)
-    sources = []
-    for kernel, name in wanted:
-        text = (_kernels.CSRC / _kernels.SOURCES[kernel]).read_text()
-        for old, new in VARIANTS[kernel][name]:
-            if old not in text:
-                raise SystemExit(f"variant {kernel}/{name}: {old!r} is not in the kernel source")
-            text = text.replace(old, new)
-        cu = out_dir / f"{kernel}-{name}.cu"
-        cu.write_text(text)
-        sources.append((str(cu), kernel))
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # every nvcc at once
-        built = list(pool.map(lambda a: chip_smoke.build_library(a[0], str(out_dir), a[1], N_TENSORS[a[1]]),
-                              sources))
+    patches = {(k, n): [(HEADER_PATCHES.get(old, "kernel"), old, new) for old, new in VARIANTS[k][n]]
+               for k, n in wanted}
     entries = {}
-    for (kernel, name), (fn, ptxas) in zip(wanted, built):
-        print(json.dumps({"kernel": kernel, "variant": name, "ptxas": ptxas}), flush=True)
-        entries[kernel, name] = fn
+    for key, (fn, ptxas) in chip_smoke.build_variants(patches).items():
+        print(json.dumps({"kernel": key[0], "variant": key[1], "ptxas": ptxas}), flush=True)
+        entries[key] = fn
     return entries
 
 
@@ -120,7 +105,7 @@ def main() -> int:
     wanted = [(k, n) for k, vs in VARIANTS.items() for n in vs if not args.variants or n in args.variants]
     runs = {key: wrap(key[0], fn) for key, fn in build(wanted).items()}
     if args.baseline:
-        base = chip_smoke.baseline_adjoints(os.path.abspath(args.baseline))
+        base = chip_smoke.baseline_kernels(os.path.abspath(args.baseline))
         runs["sepconv_bwd_vh", "baseline"] = base["sepconv_bwd_vh"]
         runs["sepconv_bwd_x", "baseline"] = lambda x, v, h, g: (base["sepconv_bwd_x"](v, h, g),)
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -93,6 +93,27 @@ def test_mxu_tiling_emulation_matches_the_tpu_kernel(H, W, C, ks):
     np.testing.assert_allclose(got, tsep.sepconv_direct(xt, vt, ht).numpy(), atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("H,W,C,ks,pixels,tap_chunk", [
+    (7, 37, 3, 51, tsep.DIRECT_PIXELS, tsep.DIRECT_TAP_CHUNK),  # the kernel's blocking; H, W ragged
+    (5, 10, 1, 4, 4, 3),  # even ks, a last chunk of one tap
+    (8, 45, 3, 6, 2, 4),  # even ks, three channels
+    (3, 66, 1, 5, 8, 17),  # one chunk past ks, a row group past H
+])
+def test_direct_tiling_emulation_matches_the_tpu_kernel(H, W, C, ks, pixels, tap_chunk):
+    """_sepconv_direct_tiled (the CUDA direct kernel's chunked sums and edge
+    masks) against sepconv_direct and against _sepconv_pallas_raw, through
+    vfi_tpu's sepconv(impl="pallas") in the interpreter: the same f32 sums in
+    another order, within 1e-5 (outputs O(1))."""
+    x, v, h, _ = _operands(2, H, W, C, ks, seed=H + W + ks + pixels)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jsep.sepconv(*map(jnp.asarray, (x, v, h)), impl="pallas"))
+    xt, vt, ht = (torch.from_numpy(a) for a in (x, v, h))
+    got = tsep._sepconv_direct_tiled(xt, vt, ht, pixels, tap_chunk)
+    assert got.shape == (2, H, W, C) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), tsep.sepconv_direct(xt, vt, ht).numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
 def test_cpu_routes_take_the_plain_versions(monkeypatch):
     """None is "mxu" on the CPU; the Pallas names take the plain forward of
     their formulation and the plain adjoints."""

@@ -32,8 +32,9 @@ HEADERS = ("sepconv_common.cuh", "sepconv_mma.cuh")
 
 # The sepconv kernels are instantiated for 1..4 channels (one f32 accumulator
 # each in registers); ks up to 64 keeps each kernel's shared-memory tiles
-# within a block's 227 KB at C=4 (the banded forward's float32 tiles excepted,
-# which fit up to 3 channels at ks=51).
+# within a block's 227 KB at C=4, except the float32 tiles with 4 channels
+# of the banded forward (which takes them up to ks=54, at 4 rows a block and
+# one staging buffer) and of bwd_vh (which raises at ks=51).
 SEPCONV_MAX_CHANNELS = 4
 SEPCONV_MAX_KS = 64
 

@@ -27,10 +27,12 @@
 // output row it stages h, v (tap-major, [ks][TW]) and g by cp.async 16-byte
 // copies into one of two buffers while the previous row's products run, so
 // there is one barrier per row.  grad_v: each warp takes an n-tile of 8
-// columns and runs the horizontal pass as mma.sync m16n8k16 (A the slab rows
-// f, padded to 64 by repeating the last row; B = S_y formed in registers
-// straight from the staged h, only on the 4-5 k-chunks of 16 its band
-// meets); g multiplies the f32 accumulators per channel.  grad_h: each warp
+// columns and runs the forward's horizontal pass, the function the banded
+// forward calls too (sepconv_mma.cuh, banded_horizontal_pass: mma.sync
+// m16n8k16, A the slab rows f by ldmatrix, padded to 64 by repeating the
+// last row; B = S_y formed in registers straight from the staged h, only on
+// the 4-5 k-chunks of 16 its band meets); g multiplies the f32 accumulators
+// per channel.  grad_h: each warp
 // takes an m-tile of 16 columns x and half of the 9 n-tiles of 8 input
 // columns u in [x0, x0+ks+15) that its band needs (A = v from the staged
 // taps, K = f padded to 64 with zeros; B = the slab by ldmatrix.trans); g
@@ -53,7 +55,6 @@
 
 namespace {
 
-using sepconv::ld32;
 using sepconv::mma_bf16;
 using sepconv::split_pair;
 using sepconv::Strides;
@@ -64,8 +65,7 @@ using sepconv::to_smem;
 constexpr int TW = 128;  // output columns per block
 constexpr int WARPS = 16;  // grad_v: one n-tile of 8 columns each; grad_h: half an m-tile of 16
 constexpr int THREADS = WARPS * 32;
-constexpr int KC_MAX = 4;   // k-chunks (grad_h) and m-tiles (grad_v) of 16 taps: ks <= 64
-constexpr int NCH_MAX = 5;  // k-chunks of 16 one n-tile's band meets in grad_v
+constexpr int KC_MAX = sepconv::BAND_MT;  // k-chunks (grad_h) and m-tiles (grad_v) of 16 taps: ks <= 64
 constexpr int NQ = 5;       // grad_h n-tiles per warp: ceil(ceil((ks+15)/8) / 2)
 constexpr size_t SMEM_MAX = 232448;
 
@@ -186,66 +186,24 @@ sepconv_bwd_vh_kernel(const T* __restrict__ x, const T* __restrict__ v, const T*
     const T* gb = gbuf(cur);
     const int y = y0 + yy;
 
-    // grad_v: n-tile n0 of this warp, every channel.
+    // grad_v: n-tile n0 of this warp, every channel (the forward's horizontal
+    // pass, sepconv::banded_horizontal_pass), g applied to its f32 sums.
     {
       const int n0 = warp * 8;
       if (x0 + n0 < W) {
-        const int kbase = 16 * (n0 >> 4);
-        const int nch = (n0 + ks + 6 - kbase) / 16 + 1;
-        // B = S_y on the band's k-chunks: b[kc] = (hi b0, hi b1, lo b0, lo b1).
-        uint32_t bf[NCH_MAX][4];
-        const T* hx = hb + n0 + gr;  // column x = n0 + gr of the staged taps
-#pragma unroll
-        for (int kc = 0; kc < NCH_MAX; ++kc) {
-          const int j = kbase + 16 * kc + 2 * tq - (n0 + gr);
-          float e[4];
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const int jt = j + (t & 1) + 8 * (t >> 1);
-            e[t] = (kc < nch && jt >= 0 && jt < ks) ? to_float(hx[jt * HRS]) : 0.f;
-          }
-          split_pair(e[0], e[1], bf[kc][0], bf[kc][2]);
-          split_pair(e[2], e[3], bf[kc][1], bf[kc][3]);
-        }
-        const int mts = (ks + 15) / 16;
-        int r0[KC_MAX], r1[KC_MAX];
-#pragma unroll
-        for (int mt = 0; mt < KC_MAX; ++mt) {
-          r0[mt] = (yy + min(16 * mt + gr, ks - 1)) * geo.rs + 2 * tq;
-          r1[mt] = (yy + min(16 * mt + gr + 8, ks - 1)) * geo.rs + 2 * tq;
-        }
         float out[KC_MAX][4] = {};
-        for (int c = 0; c < C; ++c) {
-          const __nv_bfloat16* xa = xs + size_t(c) * geo.rows * geo.rs;
-          float acc[KC_MAX][4] = {};
+        sepconv::banded_horizontal_pass<SPLIT, C>(
+            xs, xpart, geo.rows, geo.rs, hb, HRS, n0, yy, ks, lane, [&](int c, const float (&acc)[KC_MAX][4]) {
+              const float g0 = to_float(gb[c * TW + n0 + 2 * tq]);
+              const float g1 = to_float(gb[c * TW + n0 + 2 * tq + 1]);
 #pragma unroll
-          for (int kc = 0; kc < NCH_MAX; ++kc) {
-            if (kc >= nch) break;
-            const int k = kbase + 16 * kc;
-#pragma unroll
-            for (int mt = 0; mt < KC_MAX; ++mt) {
-              if (mt >= mts) continue;
-              const __nv_bfloat16* p0 = xa + r0[mt] + k;
-              const __nv_bfloat16* p1 = xa + r1[mt] + k;
-              const uint32_t a0 = ld32(p0), a1 = ld32(p1), a2 = ld32(p0 + 8), a3 = ld32(p1 + 8);
-              mma_bf16(acc[mt], a0, a1, a2, a3, bf[kc][0], bf[kc][1]);
-              if (SPLIT) {
-                mma_bf16(acc[mt], ld32(p0 + xpart), ld32(p1 + xpart), ld32(p0 + xpart + 8), ld32(p1 + xpart + 8),
-                         bf[kc][0], bf[kc][1]);
-                mma_bf16(acc[mt], a0, a1, a2, a3, bf[kc][2], bf[kc][3]);
+              for (int mt = 0; mt < KC_MAX; ++mt) {
+                out[mt][0] = fmaf(g0, acc[mt][0], out[mt][0]);
+                out[mt][1] = fmaf(g1, acc[mt][1], out[mt][1]);
+                out[mt][2] = fmaf(g0, acc[mt][2], out[mt][2]);
+                out[mt][3] = fmaf(g1, acc[mt][3], out[mt][3]);
               }
-            }
-          }
-          const float g0 = to_float(gb[c * TW + n0 + 2 * tq]);
-          const float g1 = to_float(gb[c * TW + n0 + 2 * tq + 1]);
-#pragma unroll
-          for (int mt = 0; mt < KC_MAX; ++mt) {
-            out[mt][0] = fmaf(g0, acc[mt][0], out[mt][0]);
-            out[mt][1] = fmaf(g1, acc[mt][1], out[mt][1]);
-            out[mt][2] = fmaf(g0, acc[mt][2], out[mt][2]);
-            out[mt][3] = fmaf(g1, acc[mt][3], out[mt][3]);
-          }
-        }
+            });
         const int gx = x0 + n0 + 2 * tq;
         T* op = gv + b * sgv.b + y * sgv.y + gx * sgv.x;
 #pragma unroll

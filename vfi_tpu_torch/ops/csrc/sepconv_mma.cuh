@@ -8,10 +8,6 @@
 
 namespace sepconv {
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Write a (exact in bf16 for bf16 operands) as hi, and for float32 its
 // remainder as lo.
 template <bool SPLIT>
@@ -50,6 +46,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat1
                : "r"(a));
 }
 
+// The same from a shared-memory address.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // Four 8x8 bf16 matrices, transposed, from shared memory: lane l gives the
 // address of row l%8 of matrix l/8 (16 bytes, 16-byte aligned).
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
@@ -67,6 +70,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
@@ -156,6 +164,89 @@ template <int NT>
 __device__ __forceinline__ void zero_smem(void* p, size_t n, int tid) {
   uint4* q = static_cast<uint4*>(p);
   for (size_t i = tid; i < n / 16; i += NT) q[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The banded kernels' horizontal pass for one output row and one n-tile of 8
+// output columns n0..n0+7 of a column tile (the forward's inner product, and
+// bwd_vh's grad_v before g):
+//
+//   inner_c[f, n0+n] = sum_u slab_c[yy+f, u] * S[u, n0+n],  S[u, x] = h[x, u-x] (0 <= u-x < ks)
+//
+// for f < 16*BAND_MT (taps past ks repeat slab row ks-1; their sums are
+// finite and the caller drops them).  xs is the block's slab ([C][rows][rs]
+// bf16, the lo parts xpart further on for float32); hs the row's staged h,
+// tap-major with row stride hrs (column x of the tile at hs[j*hrs + x]).  S's
+// fragments are formed in registers from hs, only on the k-chunks of 16 that
+// the n-tile's band meets (4-5 at ks=51), rounded as bf16 hi (and, SPLIT, lo)
+// pairs; A comes by ldmatrix.  The products are mma.sync m16n8k16, bf16 in,
+// f32 sums: hi*hi, then for SPLIT lo*hi and hi*lo.  For each channel c,
+// epi(c, acc) gets the f32 fragments: acc[mt][0..1] hold inner_c[16*mt+gr,
+// n0+2*tq+{0,1}], acc[mt][2..3] the same for tap 16*mt+gr+8 (gr = lane/4,
+// tq = lane%4).  Warp-wide; ks <= 16*BAND_MT.
+constexpr int BAND_MT = 4;   // m-tiles of 16 taps
+constexpr int BAND_NCH = 5;  // k-chunks of 16 one n-tile's band can meet
+
+template <bool SPLIT, int C, typename T, typename Epilogue>
+__device__ __forceinline__ void banded_horizontal_pass(const __nv_bfloat16* xs, size_t xpart, int rows, int rs,
+                                                       const T* hs, int hrs, int n0, int yy, int ks, int lane,
+                                                       Epilogue epi) {
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int kbase = 16 * (n0 >> 4);
+  const int nch = (n0 + ks + 6 - kbase) / 16 + 1;
+  // B = S on the band's k-chunks: bf[kc] = (hi b0, hi b1, lo b0, lo b1).
+  uint32_t bf[BAND_NCH][4];
+  const T* hx = hs + n0 + gr;  // column n0 + gr of the staged taps
+#pragma unroll
+  for (int kc = 0; kc < BAND_NCH; ++kc) {
+    const int j = kbase + 16 * kc + 2 * tq - (n0 + gr);
+    float e[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int jt = j + (t & 1) + 8 * (t >> 1);
+      e[t] = (kc < nch && jt >= 0 && jt < ks) ? to_float(hx[jt * hrs]) : 0.f;
+    }
+    split_pair(e[0], e[1], bf[kc][0], bf[kc][2]);
+    split_pair(e[2], e[3], bf[kc][1], bf[kc][3]);
+  }
+  // ldmatrix rows: lane l gives row (l%8) + 8*((l/8)%2) of the m-tile, columns
+  // k + 8*(l/16), so that the four matrices are the fragment's a0..a3.
+  // Shared-memory byte addresses, 32 bits.
+  // Every m-tile runs, also past ks (a few idle products at small ks, one
+  // register less); the addresses move to the next channel's slab as it
+  // starts.
+  const uint32_t xs0 = static_cast<uint32_t>(__cvta_generic_to_shared(xs)) + 2 * (8 * (lane >> 4) + kbase);
+  uint32_t arow[BAND_MT];
+#pragma unroll
+  for (int mt = 0; mt < BAND_MT; ++mt)
+    arow[mt] = xs0 + 2 * (yy + min(16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1), ks - 1)) * rs;
+  const uint32_t lo_ofs = 2 * uint32_t(xpart);
+#pragma unroll 1
+  for (int c = 0; c < C; ++c) {
+    if (c > 0) {
+#pragma unroll
+      for (int mt = 0; mt < BAND_MT; ++mt) arow[mt] += 2 * rows * rs;
+    }
+    float acc[BAND_MT][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < BAND_NCH; ++kc) {
+      if (kc >= nch) break;
+#pragma unroll
+      for (int mt = 0; mt < BAND_MT; ++mt) {
+        const uint32_t ar = arow[mt] + 32 * kc;
+        uint32_t a[4];
+        ldmatrix_x4(a, ar);
+        mma_bf16(acc[mt], a[0], a[1], a[2], a[3], bf[kc][0], bf[kc][1]);
+        if (SPLIT) {
+          uint32_t l[4];
+          ldmatrix_x4(l, ar + lo_ofs);
+          mma_bf16(acc[mt], l[0], l[1], l[2], l[3], bf[kc][0], bf[kc][1]);
+          mma_bf16(acc[mt], a[0], a[1], a[2], a[3], bf[kc][2], bf[kc][3]);
+        }
+      }
+    }
+    epi(c, acc);
+  }
 }
 
 // True when cp.async may stage rows of this operand (see stage_rows): x has

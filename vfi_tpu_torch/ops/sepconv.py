@@ -14,8 +14,9 @@ Implementations, each a plain PyTorch version beside a hand-written CUDA
 kernel (``csrc/``) that is held against it:
 
   * forward, direct: :func:`sepconv_direct` (O(ks^2) accumulation, the spec);
-    :func:`sepconv_fwd_cuda` (``sepconv_fwd.cu``, the counterpart of
-    vfi_tpu's ``_sepconv_pallas_raw``).
+    :func:`sepconv_fwd_cuda` (``sepconv_fwd.cu``, CUDA cores, the counterpart
+    of vfi_tpu's ``_sepconv_pallas_raw``); :func:`_sepconv_direct_tiled`
+    emulates that kernel's summation order (tests only).
   * forward, banded: :func:`sepconv_banded` (the horizontal pass as a matmul
     against the banded matrix ``S[b, y, x, u] = h[b, y, x, u-x]``);
     :func:`sepconv_fwd_mxu_cuda` (``sepconv_fwd_mxu.cu``, tensor cores, the
@@ -198,6 +199,49 @@ def _sepconv_mxu_tiled(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> tor
         inner = sum(torch.einsum("byfuc,byxu->byfxc", a, s) for a, s in pairs)
         tiles.append(torch.einsum("byfxc,byxf->byxc", inner, vf[:, :, j * tw : (j + 1) * tw]))
     return torch.cat(tiles, dim=2)[:, :, :W].to(x.dtype)
+
+
+# The direct kernel's register blocking (``P`` and ``J`` in ``csrc/sepconv_fwd.cu``):
+# output rows per thread, horizontal taps per chunk.
+DIRECT_PIXELS = 4
+DIRECT_TAP_CHUNK = 17
+
+
+def _sepconv_direct_tiled(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor, pixels: int = DIRECT_PIXELS,
+                          tap_chunk: int = DIRECT_TAP_CHUNK) -> torch.Tensor:
+    """Torch emulation of ``sepconv_fwd.cu``'s summation order and edge
+    masking, for the tests: it is on no path.
+
+    Rows go in groups of ``pixels`` (one thread's pixels of a column), the
+    last group past H masked; the horizontal taps in chunks of ``tap_chunk``,
+    h zero-padded to whole chunks and x zero past the padded image.  Per
+    chunk, each group walks the ``ks+pixels-1`` input rows r its pixels meet;
+    pixel p takes row r's partial sum over the chunk's taps as tap row
+    f = r - p where 0 <= f < ks:
+
+        out = sum_chunk sum_f v_f * (sum_{j in chunk} h_j * x[y+f, x+j])
+
+    in float32 (the kernel's multiply-adds are fused; here they are not).
+    """
+    B, H, W, C, ks = _check_shapes(x, v, h)
+    P, J = pixels, tap_chunk
+    taps = -(-ks // J) * J
+    Hb = -(-H // P) * P
+    G = Hb // P
+    xf = F.pad(_wide(x), (0, 0, 0, taps - ks, 0, Hb - H))  # [B, Hb+ks-1, W+taps-1, C]
+    vf = F.pad(_wide(v), (0, 0, 0, 0, 0, Hb - H)).reshape(B, G, P, W, ks)
+    hf = F.pad(_wide(h), (0, taps - ks, 0, 0, 0, Hb - H)).reshape(B, G, P, W, taps, 1)
+    acc = torch.zeros((B, G, P, W, C), dtype=xf.dtype, device=x.device)
+    for j0 in range(0, taps, J):
+        for r in range(ks + P - 1):
+            rows = xf[:, r : r + Hb : P, None]  # [B, G, 1, W+taps-1, C]: row g*P + r of each group
+            part = torch.zeros_like(acc)
+            for j in range(j0, j0 + J):
+                part = part + hf[:, :, :, :, j] * rows[:, :, :, j : j + W]
+            for p in range(P):
+                if 0 <= r - p < ks:
+                    acc[:, :, p] += vf[:, :, p, :, r - p, None] * part[:, :, p]
+    return acc.reshape(B, Hb, W, C)[:, :H].to(x.dtype)
 
 
 def _ceil16(n: int) -> int:
@@ -413,7 +457,7 @@ def sepconv_fwd_mxu_cuda(x: torch.Tensor, v: torch.Tensor, h: torch.Tensor) -> t
     Counterpart of vfi_tpu's Pallas kernel ``_sepconv_pallas_mxu_raw``
     (``impl="pallas_mxu"``, the default on CUDA).  Raises on anything the
     kernel does not take, including a float32 call whose tiles do not fit a
-    block's shared memory (4 channels at ks=51); never falls back.
+    block's shared memory (4 channels with ks > 54); never falls back.
     """
     global sepconv_fwd_mxu_launches
     from . import _kernels
