@@ -38,21 +38,37 @@ tensor-core kernel by default (``"pallas_mxu"``), the direct kernel under
                    what it stores, max-abs at 4096 points of each output and
                    uint8 PSNR of pred's frames), then bf16 uint8 requests at
                    B=16, launches counted.
-  7. train_golden — two f32 training steps of TAI_gray at B=2 against the JAX
+  7. predict     — TAI_gray served by ``vfi_tpu_torch.cli.predict`` from a
+                   port snapshot (``utils/checkpoint.py``) of the seed-0
+                   weights, on 130 synthetic clips of exactly 15 frames:
+                   bf16 ``--device_normalize`` at B=64 (batches 64, 64 and 2
+                   padded to 64) writes 130 folders of 20 PNGs with 6
+                   banded and 0 direct launches and one padding line; f32
+                   (TF32 off) on the first 16 clips at B=8, each pred_middle
+                   PNG within 1 uint8 level of
+                   ``VideoInpainter.from_checkpoint(...).inpaint``;
+                   ``cli.compute_quant_results`` on that output, with its
+                   metrics on the card, against float64 numpy: |dPSNR| <=
+                   1e-3 dB, |dSSIM| <= 1e-4; one batch of 8 clips under a
+                   JSON model key with ``"sepconv_impl": "pallas"``: 2 direct
+                   and 0 banded launches.  Then ``timing_predict``: the bf16
+                   run timed at VFI_INFLIGHT 2 and 1 (loop, clips/s, middle
+                   frames/s, the forward's device share, host seconds).
+  8. train_golden — two f32 training steps of TAI_gray at B=2 against the JAX
                    training golden (``tests/torch_golden_train_tai_gray.npz``):
                    loss terms within rel 1e-3, step-1 gradient projections
                    within global-L2-relative 1e-3.
-  8. train_kernel_vs_plain — the G gradient through the adjoint kernels
+  9. train_kernel_vs_plain — the G gradient through the adjoint kernels
                    against the same gradient through the plain adjoints,
                    global-L2-relative <= 1e-4.
-  9. train_pallas — one f32 G update of TAI_gray at B=2 through each forward
+ 10. train_pallas — one f32 G update of TAI_gray at B=2 through each forward
                    kernel: G gradients within global-L2-relative 1e-3.
- 10. train       — TAI_gray B=8 in bf16 mixed precision and in f32: finite
+ 11. train       — TAI_gray B=8 in bf16 mixed precision and in f32: finite
                    loss terms, 2 launches of the banded forward and of each
                    adjoint per G update, ms per step (G and D updates apart)
                    and peak device memory.
- 11. train_color — TAI_color 256x320 B=4 in bf16: the same counts and times.
- 12. timing      — CUDA-event times of each kernel, its plain version and the
+ 12. train_color — TAI_color 256x320 B=4 in bf16: the same counts and times.
+ 13. timing      — CUDA-event times of each kernel, its plain version and the
                    serving forwards (the forwards at both serving and both
                    training shapes, the adjoints at both training shapes;
                    with ``--baseline``, another checkout's four kernels in
@@ -69,10 +85,12 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import io
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -81,11 +99,18 @@ import numpy as np
 import torch
 
 from vfi_tpu_torch.api import VideoInpainter
+from vfi_tpu_torch.cli import compute_quant_results as quant_cli
+from vfi_tpu_torch.cli import predict as predict_cli
+from vfi_tpu_torch.data import native_loader
+from vfi_tpu_torch.data.datasets import ContiguousVideoClipDataset
+from vfi_tpu_torch.data.synthetic import make_videolist
 from vfi_tpu_torch.models.registry import create_model, model_config
 from vfi_tpu_torch.ops import _kernels
 from vfi_tpu_torch.ops import sepconv as sepconv_ops
 from vfi_tpu_torch.train.environments import create_training_environment
+from vfi_tpu_torch.utils import checkpoint as ckpt
 from vfi_tpu_torch.utils.config import TrainConfig
+from vfi_tpu_torch.utils.png import read_png, write_png
 from vfi_tpu_torch.utils.params import (disc_variables_from_jax, params_from_jax, random_jax_disc_variables,
                                         random_jax_params)
 
@@ -579,6 +604,210 @@ def phase_serve_color() -> dict:
     return launches
 
 
+# The predict phase: TAI_gray served by the predict CLI from a snapshot.
+PREDICT = dict(model_key="TAI_gray", param_seed=0, clip_seed=0, clips=130, frames=15, hw=128, K=5, T=5, F=5,
+               batch=64, f32_clips=16, f32_batch=8, pallas_clips=8)
+PREDICT_NAME = "smoke_tai_gray"
+
+
+def _head(videolist: str, n: int, path: str) -> str:
+    """A videolist of the first ``n`` lines of ``videolist``."""
+    with open(videolist) as f, open(path, "w") as g:
+        g.writelines(f.readlines()[:n])
+    return path
+
+
+def run_predict(args) -> tuple[dict, str]:
+    """``vfi_tpu_torch.cli.predict.main(args)`` in this process; (its stats, its stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        stats = predict_cli.main(args)
+    return stats, out.getvalue()
+
+
+def np_psnr_ssim(pred: np.ndarray, gt: np.ndarray, win: int = 7) -> tuple[float, float]:
+    """PSNR and SSIM of two uint8 images [H, W] or [H, W, C] in float64 numpy,
+    skimage's semantics (data_range 255; SSIM: 7x7 uniform VALID window, sample
+    covariance, mean over channels and valid pixels); an independent reference
+    for ``ops/metrics.py``."""
+    x, y = (a.astype(np.float64).reshape(a.shape[0], a.shape[1], -1) for a in (pred, gt))
+    psnr = 10.0 * math.log10(255.0**2 / max(float(np.mean((x - y) ** 2)), 1e-12))
+
+    def win_mean(a):
+        c = np.pad(a, ((1, 0), (1, 0), (0, 0))).cumsum(0).cumsum(1)
+        return (c[win:, win:] - c[:-win, win:] - c[win:, :-win] + c[:-win, :-win]) / (win * win)
+
+    n = win * win
+    ux, uy = win_mean(x), win_mean(y)
+    vx = n / (n - 1) * (win_mean(x * x) - ux * ux)
+    vy = n / (n - 1) * (win_mean(y * y) - uy * uy)
+    vxy = n / (n - 1) * (win_mean(x * y) - ux * uy)
+    c1, c2 = (0.01 * 255.0) ** 2, (0.03 * 255.0) ** 2
+    s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux**2 + uy**2 + c1) * (vx + vy + c2))
+    return psnr, float(s.mean())
+
+
+def _predict_args(cfg, root, videolist, qual, dtype, batch, extra=()):
+    return ["--K", str(cfg["K"]), "--T", str(cfg["T"]), "--F", str(cfg["F"]), "--c_dim", "1",
+            "--image_size", str(cfg["hw"]), "--batch_size", str(batch), "--dtype", dtype,
+            "--model_key", cfg["model_key"], "--name", PREDICT_NAME, "--checkpoints_dir", os.path.join(root, "ckpt"),
+            "--test_video_list_path", videolist, "--qual_result_root", qual, "--device", "cuda", *extra]
+
+
+def _pngs(qual: str) -> dict:
+    return {clip: sorted(os.listdir(os.path.join(qual, clip))) for clip in sorted(os.listdir(qual))}
+
+
+def phase_predict(root: str) -> tuple:
+    """TAI_gray served by ``vfi_tpu_torch.cli.predict`` from a port snapshot
+    of ``random_jax_params("TAI_gray", 0)`` on 130 synthetic clips of exactly
+    K+T+F = 15 frames (so the crop is deterministic), the metrics by
+    ``cli.compute_quant_results`` on the card.  Returns the launches of its
+    three paths and the data the timing needs."""
+    cfg = PREDICT
+    K, T, F = cfg["K"], cfg["T"], cfg["F"]
+    videolist = make_videolist(os.path.join(root, "clips"), cfg["clips"], cfg["clip_seed"], n_frames=cfg["frames"],
+                               hw=cfg["hw"])
+    env = create_training_environment(create_model(cfg["model_key"]), TrainConfig(K=K, T=T, F=F))
+    state = env.init_state((cfg["hw"], cfg["hw"]), g_params=random_jax_params(cfg["model_key"], cfg["param_seed"]),
+                           device="cpu")
+    ckpt.save_snapshot(os.path.join(root, "ckpt", PREDICT_NAME), "model_best.ckpt", state,
+                       {"updates": 0, "sum_avg_psnr_err": 0.0, "sum_avg_ssim_err": 0.0})
+    del env, state
+
+    # Host decoding: the .npy clips are read by numpy; the native loader
+    # (frame directories) is built here and held to the Python path.
+    native = native_loader.available()
+    native_err = None
+    if native:
+        vid = np.load(os.path.join(root, "clips", "clip0.npy"))
+        frames_dir = os.path.join(root, "frames0")
+        os.makedirs(frames_dir, exist_ok=True)
+        for t, frame in enumerate(vid):
+            write_png(os.path.join(frames_dir, f"{t:04d}.png"), frame)
+        lst = os.path.join(root, "frames.txt")
+        with open(lst, "w") as f:
+            f.write(f"{frames_dir} 1-{cfg['frames']}\n")
+        py, nat = (ContiguousVideoClipDataset(1, lst, cfg["frames"], False, False, (cfg["hw"], cfg["hw"]), False,
+                                              use_native=u)[0]["targets"] for u in (False, True))
+        native_err = float(np.abs(py - nat).max())
+        # The luma weights sum to 0.9999: the native loader applies them before
+        # the map to [-1, 1], the Python path after it, 1e-4 apart (as in vfi_tpu).
+        gate(native_err <= 2e-4, f"native loader off the Python path by {native_err} on PNG frames at the model's size")
+    emit("predict_decoder", clips="numpy .npy (datasets._VideoReader)", native_loader_available=native,
+         native_vs_python_max_abs=native_err)
+
+    paths, res = {}, {}
+    # bf16, --device_normalize, B=64: batches of 64, 64 and 2 (padded to 64).
+    qual16 = os.path.join(root, "qual_bf16")
+    _reset_launch_counts()
+    stats, stdout = run_predict(_predict_args(cfg, root, videolist, qual16, "bfloat16", cfg["batch"],
+                                              ["--device_normalize"]))
+    paths["predict"] = _launch_counts()
+    pngs = _pngs(qual16)
+    n_pad = stdout.count(f"padded final batch {cfg['clips'] % cfg['batch']} -> {cfg['batch']}")
+    emit("predict", dtype="bfloat16", batch=cfg["batch"], clips=stats["clips"], batches=stats["batches"],
+         folders=len(pngs), pngs_per_folder=sorted({len(v) for v in pngs.values()}), padding_lines=n_pad,
+         loop_s=stats["loop_s"], forward_s=stats["forward_s"], **paths["predict"])
+    gate(len(pngs) == cfg["clips"] and all(len(v) == K + 2 * T + F for v in pngs.values()),
+         f"predict bf16 wrote {len(pngs)} folders of {sorted({len(v) for v in pngs.values()})} PNGs")
+    gate(n_pad == 1, f"the padding line was printed {n_pad} times")
+    _gate_launches("predict", paths["predict"], {"sepconv_fwd_mxu": 6})
+
+    # f32 (TF32 off) on the first 16 clips at B=8, against from_checkpoint(...).inpaint.
+    qual32 = os.path.join(root, "qual_f32")
+    lst16 = _head(videolist, cfg["f32_clips"], os.path.join(root, "list16.txt"))
+    _reset_launch_counts()
+    stats32, _ = run_predict(_predict_args(cfg, root, lst16, qual32, "float32", cfg["f32_batch"]))
+    paths["predict_f32"] = _launch_counts()
+    _gate_launches("predict_f32", paths["predict_f32"],
+                   {"sepconv_fwd_mxu": 2 * (cfg["f32_clips"] // cfg["f32_batch"])})
+    with uncounted():
+        ip = VideoInpainter.from_checkpoint(cfg["model_key"], os.path.join(root, "ckpt", PREDICT_NAME),
+                                            dtype=torch.float32, device="cuda")
+        vids = np.stack([np.load(os.path.join(root, "clips", f"clip{i}.npy")) for i in range(cfg["f32_clips"])])
+        want = ip.inpaint(vids[:, :K], vids[:, K + T:], T)[..., 0]
+        del ip
+    worst, psnr16 = 0, []
+    for i in range(cfg["f32_clips"]):
+        label = f"clip{i}.npy_1-{cfg['frames']}"
+        for t in range(T):
+            name = f"pred_middle_{K + t:04d}.png"
+            got = read_png(os.path.join(qual32, label, name))
+            worst = max(worst, int(np.abs(got.astype(np.int16) - want[i, t]).max()))
+            psnr16.append(u8_psnr(read_png(os.path.join(qual16, label, name)), got))
+    res.update(f32_vs_inpaint_max_levels=worst, bf16_vs_f32_u8_psnr_db_min=min(psnr16),
+               bf16_vs_f32_u8_psnr_db_mean=float(np.mean(psnr16)))
+    gate(worst <= 1, f"predict f32 PNGs off from_checkpoint(...).inpaint by {worst} uint8 levels")
+
+    # Metrics on the card against float64 numpy.
+    quant = os.path.join(root, "quant_f32")
+    with contextlib.redirect_stdout(io.StringIO()):
+        quant_cli.main([qual32, quant, str(K), str(T)])
+    z = np.load(os.path.join(quant, "results.npz"))
+    ref = np.array([[np_psnr_ssim(read_png(os.path.join(v, f"pred_middle_{t:04d}.png")),
+                                  read_png(os.path.join(v, f"gt_middle_{t:04d}.png"))) for t in range(K, K + T)]
+                    for v in z["video"]])
+    dpsnr = float(np.abs(z["psnr"] - ref[..., 0]).max())
+    dssim = float(np.abs(z["ssim"] - ref[..., 1]).max())
+    res.update(quant_videos=len(z["video"]), quant_psnr_mean_db=float(z["psnr"].mean()),
+               quant_ssim_mean=float(z["ssim"].mean()), quant_psnr_max_abs_diff_db=dpsnr,
+               quant_ssim_max_abs_diff=dssim)
+    gate(z["psnr"].shape == (cfg["f32_clips"], T), f"results.npz psnr of shape {z['psnr'].shape}")
+    gate(dpsnr <= 1e-3, f"card PSNR off the float64 reference by {dpsnr} dB > 1e-3")
+    gate(dssim <= 1e-4, f"card SSIM off the float64 reference by {dssim} > 1e-4")
+
+    # The direct kernel's route, named by a JSON model key.
+    spec = {**model_spec(cfg["model_key"], "pallas"), "args": []}
+    lst8 = _head(videolist, cfg["pallas_clips"], os.path.join(root, "list8.txt"))
+    _reset_launch_counts()
+    run_predict(_predict_args(cfg, root, lst8, os.path.join(root, "qual_pallas"), "bfloat16", cfg["pallas_clips"],
+                              ["--model_key", json.dumps(spec), "--device_normalize"]))  # the later key wins
+    paths["predict_pallas"] = _launch_counts()
+    _gate_launches("predict_pallas", paths["predict_pallas"], {"sepconv_fwd": 2})
+    emit("predict_checks", f32_launches=paths["predict_f32"], pallas_launches=paths["predict_pallas"],
+         pallas_model_key=spec, **res)
+    return paths, (videolist, stats)
+
+
+def phase_timing_predict(root: str, videolist: str, warm: dict) -> None:
+    """The bf16 B=64 predict run of ``phase_predict`` (its warm-up) timed again
+    at VFI_INFLIGHT 2 and 1: the loop's wall seconds, clips/s and middle
+    frames/s through the CLI, the forward's device seconds (CUDA events around
+    ``forward_test``) against the host's: waiting for decoded batches, and
+    writing PNGs, split into waiting for the device, normalizing the GT frames
+    and the rest (quantizing and encoding the PNGs, writing the files)."""
+    cfg = PREDICT
+    runs = {}
+    saved = os.environ.get("VFI_INFLIGHT")
+    try:
+        for depth in (2, 1):
+            os.environ["VFI_INFLIGHT"] = str(depth)
+            qual = os.path.join(root, f"qual_timing_{depth}")
+            with uncounted():
+                stats, _ = run_predict(_predict_args(cfg, root, videolist, qual, "bfloat16", cfg["batch"],
+                                                     ["--device_normalize"]))
+            shutil.rmtree(qual)
+            runs[depth] = stats
+            middles = stats["clips"] * cfg["T"]
+            emit("timing_predict", model=cfg["model_key"], dtype="bfloat16", batch=cfg["batch"],
+                 device_normalize=True, inflight=depth, clips=stats["clips"], batches=stats["batches"],
+                 loop_s=stats["loop_s"], clips_per_s=stats["clips"] / stats["loop_s"],
+                 middle_frames_per_s=middles / stats["loop_s"], forward_s=stats["forward_s"],
+                 forward_share=stats["forward_s"] / stats["loop_s"],
+                 forward_ms_per_batch=stats["forward_s"] / stats["batches"] * 1e3,
+                 forward_only_middle_frames_per_s=middles / stats["forward_s"],
+                 wait_data_s=stats["wait_data_s"], write_s=stats["write_s"], wait_device_s=stats["wait_device_s"],
+                 normalize_s=stats["normalize_s"],
+                 png_s=stats["write_s"] - stats["wait_device_s"] - stats["normalize_s"],
+                 warmup_loop_s=warm["loop_s"], pngs_per_batch=cfg["batch"] * (cfg["K"] + 2 * cfg["T"] + cfg["F"]))
+    finally:
+        if saved is None:
+            os.environ.pop("VFI_INFLIGHT", None)
+        else:
+            os.environ["VFI_INFLIGHT"] = saved
+
+
 def phase_train_golden():
     """Two f32 training steps at B=2 against the JAX golden (TF32 off)."""
     report, env, state, targets = check_train_golden(torch.device("cuda"))
@@ -1001,6 +1230,15 @@ def main(argv) -> int:
     state = params_from_jax(random_jax_params(GOLDEN["model_key"], GOLDEN["param_seed"]))
     paths = {"serve": phase_serve(state), "serve_pallas": phase_serve(state, "pallas"),
              "serve_color": phase_serve_color()}
+    predict_root = os.path.join(str(_kernels.BUILD_DIR), "predict_smoke")
+    shutil.rmtree(predict_root, ignore_errors=True)
+    try:
+        predict_paths, (videolist, warm) = phase_predict(predict_root)
+        paths.update(predict_paths)
+        phase_timing_predict(predict_root, videolist, warm)
+    finally:
+        shutil.rmtree(predict_root, ignore_errors=True)
+    torch.cuda.empty_cache()
     env, tstate, targets = phase_train_golden()
     phase_train_kernel_vs_plain(env, tstate, targets)
     del env, tstate, targets

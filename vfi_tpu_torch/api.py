@@ -4,8 +4,12 @@
     ip = VideoInpainter("TAI_gray", state_dict, dtype=torch.bfloat16)   # on cuda
     middles = ip.inpaint(preceding_u8, following_u8, T=5)               # uint8 in/out
 
-``state_dict`` is a port state_dict, e.g. ``params_from_jax(flax_params)``.
-The model runs on ``cuda`` unless the caller passes ``device="cpu"``.
+    ip = VideoInpainter.from_checkpoint("TAI_gray", "checkpoints/kth_bi-TAI")   # model_best.ckpt
+
+``state_dict`` is a port state_dict, e.g. ``params_from_jax(flax_params)``;
+``from_checkpoint`` reads the generator of a port snapshot
+(``utils/checkpoint.py``).  The model runs on ``cuda`` unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,15 +21,16 @@ import torch
 
 from .models.registry import ModelSpec, create_model
 from .ops.image import BGR_LUMA
+from .utils import checkpoint as ckpt
 
 
 def resolve_device(device=None) -> torch.device:
-    """``cuda`` by default; raise when no GPU is present and the CPU was not asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    """``cuda`` by default; raise when a GPU is wanted and none is present
+    (the CPU must be asked for)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
+    return device
 
 
 class VideoInpainter:
@@ -36,6 +41,13 @@ class VideoInpainter:
         self.model = create_model(model)
         self.model.load_state_dict(state_dict)
         self.model.to(device=self.device, dtype=dtype).eval()
+
+    @classmethod
+    def from_checkpoint(cls, model_key: ModelSpec, checkpoint_dir: str, snapshot: str = "model_best.ckpt",
+                        dtype: torch.dtype = torch.float32, device=None) -> "VideoInpainter":
+        """Serve the generator of the snapshot ``checkpoint_dir/snapshot``."""
+        payload, _ = ckpt.load_snapshot(checkpoint_dir, snapshot)
+        return cls(model_key, payload["generator"], device=device, dtype=dtype)
 
     def _to_model(self, frames_u8: np.ndarray, gray: bool) -> torch.Tensor:
         x = frames_u8.astype(np.float32) / 255.0

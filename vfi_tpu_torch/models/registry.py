@@ -1,8 +1,16 @@
-"""Model registry (counterpart of ``vfi_tpu/models/registry.py``) for the keys
-ported so far."""
+"""Model registry (counterpart of ``vfi_tpu/models/registry.py``) for the
+classes ported so far.
+
+A model is named by a registry key, by a JSON file, or by a JSON literal,
+as in vfi_tpu: ``{"class": name, "args": [...], "kwargs": {...}}`` (the
+reference's models_as_files/example.json schema).  Python callers may also
+pass that spec as a dict, where ``args`` and ``kwargs`` may be left out.
+"""
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, Union
 
 from .fill_in import TAIFillInModel, TWIFillInModel
@@ -28,16 +36,35 @@ def model_keys() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def _json_spec(info: Any) -> Dict[str, Any]:
+    """A JSON model spec, held to vfi_tpu's schema."""
+    if not (isinstance(info, dict) and isinstance(info.get("class"), str) and isinstance(info.get("args"), list)
+            and isinstance(info.get("kwargs"), dict)):
+        raise ValueError(f'a JSON model key must be {{"class": str, "args": list, "kwargs": dict}}, got {info!r}')
+    return info
+
+
 def model_config(model: ModelSpec) -> Dict[str, Any]:
-    """A registry key, or a ``{"class": name, "kwargs": {...}}`` spec (the
-    schema of vfi_tpu's JSON model keys), as a spec."""
+    """A registry key, a JSON file path, a JSON literal, or a dict spec, as a spec."""
     if isinstance(model, dict):
-        if model.get("class") not in _CLASSES:
-            raise KeyError(f"unknown model class {model.get('class')!r}; ported: {sorted(_CLASSES)}")
-        return model
-    if model not in _REGISTRY:
-        raise KeyError(f"model key {model!r} is not ported; ported keys: {model_keys()}")
-    return _REGISTRY[model]
+        spec = model
+    elif model in _REGISTRY:
+        return _REGISTRY[model]
+    elif os.path.isfile(model):
+        with open(model) as f:
+            spec = _json_spec(json.load(f))
+    else:
+        try:
+            info = json.loads(model)
+        except ValueError:
+            raise KeyError(
+                f"Unknown model key {model!r}; not a registry key, file, or JSON literal. "
+                f"Known keys: {model_keys()}"
+            ) from None
+        spec = _json_spec(info)
+    if spec.get("class") not in _CLASSES:
+        raise KeyError(f"unknown model class {spec.get('class')!r}; ported: {sorted(_CLASSES)}")
+    return spec
 
 
 def create_model(model: ModelSpec):

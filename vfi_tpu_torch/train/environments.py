@@ -1,4 +1,9 @@
-"""GAN training environments (counterpart of ``vfi_tpu/train/environments.py``).
+"""Evaluation and GAN training environments (counterpart of
+``vfi_tpu/train/environments.py``).
+
+    env = create_eval_environment(model, TrainConfig(K=5, T=5, F=5))
+    out = env.forward_test(T, preceding, following)   # the model's outputs, no autograd
+    m = env.eval_metrics(K, T, F, targets)             # psnr / ssim / l2 per [B, T]
 
     env = create_training_environment(model, TrainConfig(K=5, T=5, F=5))
     state = env.init_state((H, W))                    # on cuda
@@ -36,6 +41,7 @@ from ..api import resolve_device
 from ..models.fill_in import TAIFillInModel
 from ..nn.discriminator import SNDiscriminator
 from ..ops.image import inverse_transform
+from ..ops.metrics import psnr, quantize_uint8, ssim
 from ..utils.params import disc_variables_from_jax, params_from_jax
 from .losses import bce_with_logits, disc_window_labels, gdl_loss, l2_loss
 
@@ -72,15 +78,44 @@ def _set_grads(module: nn.Module, loss: torch.Tensor) -> None:
         p.grad = torch.zeros_like(p) if g is None else g
 
 
-class L2GDLDiscEnvironment:
-    """MSE + GDL + sliding-window SN-GAN training."""
+class BaseEnvironment:
+    """Shared: the generator's evaluation; subclasses add losses and optimizers.
 
-    min_K = 1
-    min_F = 1
+    ``forward_test`` and ``eval_metrics`` run the environment's model as it
+    stands (its weights, device and dtype)."""
+
+    needs_snapshot = True  # False for parameter-free models
 
     def __init__(self, model: nn.Module, cfg):
         self.model = model
         self.cfg = cfg
+
+    @torch.inference_mode()
+    def forward_test(self, T: int, preceding: torch.Tensor, following: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.model(T, preceding, following)
+
+    @torch.inference_mode()
+    def eval_metrics(self, K: int, T: int, F: int, targets: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Per-(video, timestep) PSNR/SSIM/L2 ``[B, T]`` of a batch of videos
+        ``[B, K+T+F, H, W, C]`` in [-1, 1] (any array), scored in float32 on
+        the model's device; the model's inputs take its dtype."""
+        w = next(self.model.parameters())
+        targets = torch.as_tensor(targets, dtype=torch.float32, device=w.device)
+        p, m, f = split_batch(targets, K, T, F)
+        pred = self.model(T, p.to(w.dtype), f.to(w.dtype))["pred"].float()
+        pred_u8, gt_u8 = quantize_uint8(pred), quantize_uint8(m)
+        return {
+            "psnr": psnr(pred_u8, gt_u8, clamp=100.0),
+            "ssim": ssim(pred_u8, gt_u8),
+            "l2": torch.mean((inverse_transform(pred) - inverse_transform(m)) ** 2, dim=(2, 3, 4)),
+        }
+
+
+class L2GDLDiscEnvironment(BaseEnvironment):
+    """MSE + GDL + sliding-window SN-GAN training."""
+
+    min_K = 1
+    min_F = 1
 
     # -- init ---------------------------------------------------------------
     def init_state(self, image_size: Tuple[int, int], *, g_params=None, d_variables=None, device=None,
@@ -239,3 +274,11 @@ def create_training_environment(model: nn.Module, cfg) -> L2GDLDiscEnvironment:
     if isinstance(model, TAIFillInModel):
         return TAIEnvironment(model, cfg)
     raise TypeError(f"no training environment for model type {type(model).__name__}")
+
+
+def create_eval_environment(model: nn.Module, cfg) -> BaseEnvironment:
+    """An evaluation environment; ``needs_snapshot`` is false for a model
+    without parameters (none is ported yet), which serves without a snapshot."""
+    env = BaseEnvironment(model, cfg)
+    env.needs_snapshot = any(True for _ in model.parameters())
+    return env

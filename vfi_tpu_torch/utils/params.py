@@ -5,7 +5,14 @@ Port submodules carry vfi_tpu's flax names, so the flax path
 ``mcnet.motion_enc.dyn1.weight``.  Conv kernels go from flax HWIO to torch
 OIHW, dense kernels ``[in, out]`` to ``[out, in]``; biases go as they are.
 The discriminator's ``"sn"`` collection maps to its ``u`` buffers:
-``("conv0", "sn", "u")`` is ``conv0.sn.u``.
+``("conv0", "sn", "u")`` is ``conv0.sn.u``.  ``params_to_jax`` and
+``disc_variables_to_jax`` go back, to nested numpy dicts.
+
+Adam state: optax's ``ScaleByAdamState(count, mu, nu)`` is torch's
+per-parameter ``step`` (every parameter at ``count``), ``exp_avg`` and
+``exp_avg_sq``; the moments take the kernels' transposes.  Both libraries
+put eps outside the square root (optax's ``eps_root`` is 0), so the same
+moments give the same update.
 """
 
 from __future__ import annotations
@@ -35,6 +42,10 @@ def _kernel_to_torch(a: np.ndarray) -> np.ndarray:
     return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T  # HWIO -> OIHW, [in, out] -> [out, in]
 
 
+def _kernel_to_jax(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T  # OIHW -> HWIO, [out, in] -> [in, out]
+
+
 def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """vfi_tpu ``params`` (nested dict of arrays) -> port state_dict (float32, CPU)."""
     state = {}
@@ -55,6 +66,58 @@ def disc_variables_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Ten
     for path, a in _flatten(variables.get("sn", {})).items():
         state[".".join(path)] = torch.from_numpy(np.array(a, np.float32, order="C"))
     return state
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Port state_dict entries ``*.weight`` / ``*.bias`` -> vfi_tpu ``params``
+    (nested dict of float32 numpy arrays).  Other entries (buffers) are left out."""
+    tree: Dict[str, Any] = {}
+    for key, t in state.items():
+        *mod, leaf = key.split(".")
+        if leaf not in ("weight", "bias"):
+            continue
+        a = t.detach().cpu().float().numpy()
+        if leaf == "weight":
+            a = _kernel_to_jax(a)
+        _set(tree, tuple(mod) + ({"weight": "kernel", "bias": "bias"}[leaf],), np.ascontiguousarray(a))
+    return tree
+
+
+def disc_variables_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port discriminator's state_dict -> vfi_tpu variables ``{"params": ..., "sn": ...}``."""
+    sn: Dict[str, Any] = {}
+    for key, t in state.items():
+        if key.split(".")[-1] not in ("weight", "bias"):
+            _set(sn, tuple(key.split(".")), t.detach().cpu().float().numpy())
+    return {"params": params_to_jax(state), "sn": sn}
+
+
+def adam_state_from_jax(adam: Mapping[str, Any], names) -> Dict[int, Dict[str, torch.Tensor]]:
+    """optax ``ScaleByAdamState`` as a mapping ``{"count", "mu", "nu"}`` -> the
+    ``"state"`` of a torch Adam ``state_dict`` over parameters named ``names``
+    in the optimizer's order.  A count of 0 (no step taken) is torch's empty state."""
+    count = int(np.asarray(adam["count"]))
+    if count == 0:
+        return {}
+    mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
+    return {i: {"step": torch.tensor(float(count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+            for i, n in enumerate(names)}
+
+
+def adam_state_to_jax(state: Mapping[int, Mapping[str, torch.Tensor]], names, params: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, Any]:
+    """The ``"state"`` of a torch Adam ``state_dict`` over parameters named
+    ``names`` -> optax ``{"count", "mu", "nu"}`` (numpy).  ``params`` (the
+    module's state_dict) gives zero moments' shapes where no step was taken.
+    Every parameter must be at the same step, as optax keeps one count."""
+    steps = {int(float(s["step"])) for s in state.values()}
+    if len(steps) > 1:
+        raise ValueError(f"Adam parameters at different steps {sorted(steps)}; optax keeps one count")
+    zeros = {n: torch.zeros_like(params[n]) for n in names}
+    mu = {n: state[i]["exp_avg"] if i in state else zeros[n] for i, n in enumerate(names)}
+    nu = {n: state[i]["exp_avg_sq"] if i in state else zeros[n] for i, n in enumerate(names)}
+    return {"count": np.asarray(steps.pop() if steps else 0, np.int32), "mu": params_to_jax(mu),
+            "nu": params_to_jax(nu)}
 
 
 def _flax_shapes(module: torch.nn.Module) -> Dict[str, Dict[Path, Tuple[int, ...]]]:
