@@ -17,9 +17,11 @@ key or a JSON model key), whose parameter order the torch Adam state follows.
 
 vfi_tpu's ``TrainState.rng`` has no counterpart in the port: ``to_torch``
 drops it, and ``to_jax`` writes what ``init_state(PRNGKey(--seed))`` would.
-The Adam hyper-parameters are not stored by optax; ``to_torch`` takes them
-from ``--lr`` and ``--beta1`` (vfi_tpu's defaults).  Needs both JAX and
-PyTorch; run on the CPU (``JAX_PLATFORMS=cpu``).
+optax stores no Adam hyper-parameters, and the port's ``load_snapshot``
+restores none: the ``param_groups`` written by ``to_torch`` hold
+``TrainConfig``'s defaults only to complete torch's ``state_dict`` layout,
+and a resumed run uses its own config's.  Needs both JAX and PyTorch; run on
+the CPU (``JAX_PLATFORMS=cpu``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch  # noqa: E402
 from vfi_tpu_torch.models.registry import create_model  # noqa: E402
 from vfi_tpu_torch.nn.discriminator import SNDiscriminator  # noqa: E402
 from vfi_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
+from vfi_tpu_torch.utils.config import TrainConfig  # noqa: E402
 from vfi_tpu_torch.utils.params import (adam_state_from_jax, adam_state_to_jax, disc_variables_from_jax,  # noqa: E402
                                         disc_variables_to_jax, params_from_jax, params_to_jax)
 
@@ -53,13 +56,15 @@ def _layout(model_key):
             list(d.state_dict()), [n for n, _ in d.named_parameters()])
 
 
-def _adam_groups(n_params: int, lr: float, beta1: float):
-    """The ``param_groups`` of the port's Adam (``L2GDLDiscEnvironment._adam``) over n parameters."""
+def _adam_groups(n_params: int):
+    """The ``param_groups`` of the port's Adam (``L2GDLDiscEnvironment._adam``)
+    over n parameters, at ``TrainConfig``'s defaults."""
     dummies = [torch.nn.Parameter(torch.zeros(())) for _ in range(n_params)]
-    return torch.optim.Adam(dummies, lr=lr, betas=(beta1, 0.999), eps=1e-8).state_dict()["param_groups"]
+    return torch.optim.Adam(dummies, lr=TrainConfig.lr, betas=(TrainConfig.beta1, 0.999),
+                            eps=1e-8).state_dict()["param_groups"]
 
 
-def to_torch_payload(state: dict, counters: dict, model_key, lr: float = 1e-4, beta1: float = 0.5) -> dict:
+def to_torch_payload(state: dict, counters: dict, model_key) -> dict:
     """A vfi_tpu snapshot's restored ``state`` and ``counters`` (nested dicts
     of numpy arrays) -> the port's snapshot payload."""
     g_keys, g_names, d_keys, d_names = _layout(model_key)
@@ -69,9 +74,9 @@ def to_torch_payload(state: dict, counters: dict, model_key, lr: float = 1e-4, b
         "generator": {k: g_sd[k] for k in g_keys},
         "discriminator": {k: d_sd[k] for k in d_keys},
         "g_opt": {"state": adam_state_from_jax(state["g_opt"]["0"], g_names),
-                  "param_groups": _adam_groups(len(g_names), lr, beta1)},
+                  "param_groups": _adam_groups(len(g_names))},
         "d_opt": {"state": adam_state_from_jax(state["d_opt"]["0"], d_names),
-                  "param_groups": _adam_groups(len(d_names), lr, beta1)},
+                  "param_groups": _adam_groups(len(d_names))},
         "step": int(np.asarray(state["step"])),
         "counters": {k: np.asarray(counters[k]).item() for k in COUNTERS},
     }
@@ -125,14 +130,11 @@ def main(argv=None) -> None:
     p.add_argument("--model_key", required=True, help="the generator's model key (registry key or JSON)")
     p.add_argument("--seed", type=int, default=0,
                    help="to_jax: the rng is what vfi_tpu's init_state(PRNGKey(seed)) writes")
-    p.add_argument("--lr", type=float, default=1e-4, help="to_torch: Adam learning rate of the port's optimizers")
-    p.add_argument("--beta1", type=float, default=0.5, help="to_torch: Adam beta1 of the port's optimizers")
     args = p.parse_args(argv)
     dst_dir, dst_name = os.path.split(os.path.abspath(args.dst))
     if args.direction == "to_torch":
         state, counters = read_jax_snapshot(args.src)
-        tckpt.write_payload(dst_dir, dst_name, to_torch_payload(state, counters, args.model_key, args.lr,
-                                                                args.beta1))
+        tckpt.write_payload(dst_dir, dst_name, to_torch_payload(state, counters, args.model_key))
     else:
         from vfi_tpu.utils import checkpoint as jckpt
 

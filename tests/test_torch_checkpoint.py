@@ -8,7 +8,9 @@ the snapshot goes to the port's layout and back, bit-exact on every array
 port resumes from the converted snapshot and takes the third step, which is
 held to vfi_tpu's third step: loss terms within rel 1e-4, G and D gradients
 within global-L2-relative 1e-4 (tests/test_torch_train.py's gates; gradients
-are gated globally, not per leaf, as the repo's gradient-parity tests are).
+are gated globally, not per leaf, as the repo's gradient-parity tests are),
+and the state after it (weights, the step's update, both Adam moments, the
+step counts) held to vfi_tpu's under the same global gate.
 JAX's step-3 gradients are read from its Adam first moments,
 grad3 = (mu3 - b1 * mu2) / (1 - b1), so the JAX step compiles once."""
 
@@ -82,9 +84,16 @@ def jax_run(tmp_path_factory):
     def grad3(mu3, mu2):
         return jax.tree.map(lambda a, b: (np.asarray(a) - b1 * np.asarray(b)) / (1.0 - b1), mu3, mu2)
 
+    g_adam, d_adam = state.g_opt[0], state.d_opt[0]
     return dict(root=root, targets=targets, terms3={k: float(v) for k, v in terms3.items()},
-                g_grad3=params_from_jax(grad3(state.g_opt[0].mu, mu2[0])),
-                d_grad3=disc_variables_from_jax({"params": grad3(state.d_opt[0].mu, mu2[1])}))
+                g_grad3=params_from_jax(grad3(g_adam.mu, mu2[0])),
+                d_grad3=disc_variables_from_jax({"params": grad3(d_adam.mu, mu2[1])}),
+                # vfi_tpu's state after step 3, in the port's names and layouts
+                count3=(int(g_adam.count), int(d_adam.count)),
+                generator3=params_from_jax(state.g_params),
+                discriminator3=disc_variables_from_jax({"params": state.d_params, "sn": state.d_sn}),
+                g_moments3=(params_from_jax(g_adam.mu), params_from_jax(g_adam.nu)),
+                d_moments3=tuple(disc_variables_from_jax({"params": m}) for m in (d_adam.mu, d_adam.nu)))
 
 
 def test_snapshot_round_trip_in_the_port(tmp_path):
@@ -116,6 +125,29 @@ def test_snapshot_round_trip_in_the_port(tmp_path):
     assert set(payload) == {"generator", "discriminator", "g_opt", "d_opt", "step", "counters"}
     with pytest.raises(FileNotFoundError, match="no snapshot"):
         tckpt.load_snapshot(str(tmp_path), "model_best.ckpt")
+
+
+def test_load_keeps_the_running_optimizers_hyper_parameters(tmp_path):
+    """load_snapshot restores the optimizers' moments and steps, not their
+    param_groups: vfi_tpu's optax states hold no hyper-parameters, so a
+    resumed run uses its own config's."""
+    env = create_training_environment(create_model(SPEC), TrainConfig(**CFG))
+    state = env.init_state((H, W), device="cpu", seed=2)
+    torch.manual_seed(3)
+    for p in state.generator.parameters():
+        p.grad = torch.randn_like(p)
+    state.g_opt.step()
+    tckpt.save_snapshot(str(tmp_path), "model_latest.ckpt", state, COUNTERS)
+
+    env2 = create_training_environment(create_model(SPEC), TrainConfig(**CFG, lr=3e-4, beta1=0.9))
+    got, _ = tckpt.load_snapshot(str(tmp_path), "model_latest.ckpt", env2.init_state((H, W), device="cpu", seed=5))
+    for opt in (got.g_opt, got.d_opt):
+        assert [(g["lr"], g["betas"]) for g in opt.param_groups] == [(3e-4, (0.9, 0.999))]
+    want = state.g_opt.state_dict()["state"]
+    assert sorted(got.g_opt.state_dict()["state"]) == sorted(want) and len(want) > 0
+    for p, q in zip(got.generator.parameters(), state.generator.parameters()):
+        assert all(torch.equal(got.g_opt.state[p][n], state.g_opt.state[q][n])
+                   for n in ("step", "exp_avg", "exp_avg_sq"))
 
 
 def test_weight_and_adam_converters_invert_each_other():
@@ -177,3 +209,22 @@ def test_port_resumes_a_converted_snapshot_and_matches_the_third_step(jax_run):
     assert _global_rel(g, jax_run["g_grad3"]) <= 1e-4
     assert _global_rel(d, jax_run["d_grad3"]) <= 1e-4
     assert tstate.step == 3
+    # The converted Adam state is what vfi_tpu used.  After the step, the
+    # weights, the step's update and each parameter's moments (read through
+    # the parameter, not the state's index) match vfi_tpu's step-3 state
+    # within global-L2-relative 1e-4, and every step count is 3: swapped or
+    # misplaced moments fail the moments, a wrong count (bias correction)
+    # fails the update.
+    assert jax_run["count3"] == (3, 3)
+    before = {"generator3": params_from_jax(state["g_params"]),
+              "discriminator3": disc_variables_from_jax({"params": state["d_params"], "sn": state["d_sn"]})}
+    for module, opt, want, (mu, nu) in ((tstate.generator, tstate.g_opt, "generator3", jax_run["g_moments3"]),
+                                        (tstate.discriminator, tstate.d_opt, "discriminator3",
+                                         jax_run["d_moments3"])):
+        got, w3, w2 = module.state_dict(), jax_run[want], before[want]
+        assert _global_rel(got, w3) <= 1e-4, want  # the discriminator's u buffers included
+        named = dict(module.named_parameters())
+        assert _global_rel({n: got[n] - w2[n] for n in named}, {n: w3[n] - w2[n] for n in named}) <= 1e-4, want
+        assert all(float(opt.state[p]["step"]) == 3.0 for p in named.values())
+        assert _global_rel({n: opt.state[p]["exp_avg"] for n, p in named.items()}, mu) <= 1e-4, want
+        assert _global_rel({n: opt.state[p]["exp_avg_sq"] for n, p in named.items()}, nu) <= 1e-4, want

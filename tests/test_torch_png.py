@@ -78,6 +78,27 @@ def test_port_reads_every_filter_type(c):
     assert np.array_equal(png.decode_png(buf), img)
 
 
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_port_reads_random_row_filters(c):
+    """Every row's filter type drawn at random, as adaptive encoders pick
+    them, on gray, gray + alpha, RGB and RGBA: the port reads what PIL reads."""
+    h, w = 23, 37
+    rng = np.random.RandomState(10 + c)
+    img = np.stack([_image(h, w, 1, seed=c + i) for i in range(c)], -1)
+    rows = img.reshape(h, -1)
+    prior = np.zeros(rows.shape[1], np.uint8)
+    data = b""
+    for row, kind in zip(rows, rng.randint(0, 5, h)):
+        data += _filtered(row, int(kind), prior, c)
+        prior = row
+    header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 2: 4, 3: 2, 4: 6}[c], 0, 0, 0)
+    buf = png.SIGNATURE + png._chunk(b"IHDR", header) + png._chunk(b"IDAT", zlib.compress(data)) + png._chunk(
+        b"IEND", b"")
+    want = np.asarray(Image.open(io.BytesIO(buf)))
+    assert np.array_equal(want.reshape(h, w, c), img)
+    assert np.array_equal(png.decode_png(buf), want)
+
+
 def test_writer_refuses_what_it_cannot_write(tmp_path):
     with pytest.raises(ValueError, match="uint8"):
         png.encode_png(np.zeros((4, 4), np.float32))

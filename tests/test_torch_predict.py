@@ -186,3 +186,20 @@ def test_predict_needs_the_cpu_asked_for_without_a_gpu(runs, monkeypatch, tmp_pa
     with pytest.raises(NotImplementedError, match="item 10"):
         predict.main(args + ["--device", "cpu", "--quantize", "int8"])
     assert not os.path.exists(tmp_path / "qual")
+
+
+def test_predict_restores_the_tf32_settings(runs, capsys, tmp_path):
+    """--dtype float32 (the default) runs with TF32 off and puts both settings
+    back when main returns, and when it raises (here: no snapshot)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        _, stats, stdout = _port(runs, "tf32", runs["videolist"], [], capsys)
+        assert "TF32: matmul False, cudnn False" in stdout and stats["clips"] == N_CLIPS
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+        args = _common(runs["root"], runs["videolist"], str(tmp_path / "qual"))
+        with pytest.raises(FileNotFoundError, match="no snapshot"):
+            predict.main(args + ["--device", "cpu", "--checkpoints_dir", str(tmp_path / "none")])
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

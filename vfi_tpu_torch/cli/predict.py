@@ -15,7 +15,8 @@ saving (predict.py:69-95).
 
 Runs on ``--device`` (default ``cuda``; without a GPU the CPU must be asked
 for).  ``--dtype float32`` turns TF32 off for matmuls and cuDNN, so float32
-means float32.  Up to ``VFI_INFLIGHT`` batches (default 2) are in flight: a
+means float32; ``main`` puts both settings back as it found them when it
+returns or raises.  Up to ``VFI_INFLIGHT`` batches (default 2) are in flight: a
 batch's outputs are quantized to uint8 on the device and copied to pinned
 host memory without blocking, and a CUDA event marks the copy; the batch's
 PNGs are written once that event has passed, while later batches run.
@@ -70,6 +71,17 @@ def save_video_frames(frames_u8: np.ndarray, dest: str, prefix: str, start_t: in
 def main(argv=None) -> dict:
     opt = parse_args(build_test_parser(), argv, allow_unknown=True)
     listopt(opt)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    if opt.dtype == "float32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _predict(opt)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _predict(opt) -> dict:
     device = resolve_device(opt.device)
     cuda = device.type == "cuda"
     if cuda and device.index is None and torch.cuda.device_count() > 1:
@@ -79,9 +91,6 @@ def main(argv=None) -> dict:
     if cuda and device.index is not None:
         torch.cuda.set_device(device)
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    if opt.dtype == "float32":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     print(f"device {device}, dtype {opt.dtype}, TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 

@@ -53,8 +53,11 @@ def save_snapshot(save_dir: str, name: str, state, counters: dict) -> None:
 
 def load_snapshot(save_dir: str, name: str, state: Optional[Any] = None) -> Tuple[Any, dict]:
     """Restore (state, counters), tensors on the CPU.  With a training
-    ``state``, the snapshot is loaded into it in place (modules, optimizers,
-    step) and the state is returned; without one, the payload is returned."""
+    ``state``, the snapshot is loaded into it in place (modules, the
+    optimizers' moments and steps, step) and the state is returned; without
+    one, the payload is returned.  The running optimizers keep their own
+    hyper-parameters (``param_groups``), as vfi_tpu's optax states hold none:
+    a resumed run uses its config's."""
     path = os.path.abspath(os.path.join(save_dir, name))
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no snapshot at {path}")
@@ -63,8 +66,8 @@ def load_snapshot(save_dir: str, name: str, state: Optional[Any] = None) -> Tupl
         return payload, payload["counters"]
     state.generator.load_state_dict(payload["generator"])
     state.discriminator.load_state_dict(payload["discriminator"])
-    state.g_opt.load_state_dict(payload["g_opt"])
-    state.d_opt.load_state_dict(payload["d_opt"])
+    for opt, saved in ((state.g_opt, payload["g_opt"]), (state.d_opt, payload["d_opt"])):
+        opt.load_state_dict({"state": saved["state"], "param_groups": opt.state_dict()["param_groups"]})
     state.step = payload["step"]
     return state, payload["counters"]
 
