@@ -68,7 +68,32 @@ tensor-core kernel by default (``"pallas_mxu"``), the direct kernel under
                    adjoint per G update, ms per step (G and D updates apart)
                    and peak device memory.
  12. train_color — TAI_color 256x320 B=4 in bf16: the same counts and times.
- 13. timing      — CUDA-event times of each kernel, its plain version and the
+ 13. train_cli   — TAI_gray at the KTH configuration (the KTH argfiles, their
+                   videolists replaced by synthetic .npy clips: 64 training
+                   clips of 15 frames, 16 for each validation set at 15, 20
+                   and 19 frames) through ``vfi_tpu_torch.cli.train`` from a
+                   port snapshot at updates=0 of the seed-0 weights: bf16
+                   ``--device_normalize`` ``--sample_KTF`` B=8, 30 iterations
+                   (snapshots every 10, validation every 15), then a resume
+                   to 40; 40 finite ``iter`` events, resumes at 0 and 30, 6
+                   ``val`` events, a ``best`` one, the snapshots, and the
+                   launches of the run's own schedule (2+2+2 per G update, 2
+                   banded per validation or visualisation forward, 0
+                   direct).  Then the CLI in f32 at B=2 (data in order,
+                   fixed K, T, F) against ``TAIEnvironment.train_step`` on the
+                   same batches (rel 1e-3) with the TF32 flags put back; a
+                   run on the direct kernel's route (a JSON key with
+                   ``"sepconv_impl": "pallas"``); and ``--remat`` against the
+                   same two iterations without it (the same launches, step-1
+                   terms within rel 1e-3, peak memory of each).
+ 14. timing_train_cli — the train CLI at B=8 bf16 ``--device_normalize`` from
+                   a fresh init, 10 warm-up and 50 timed iterations at
+                   ``--print_freq 10``, at fixed K=T=F=5 and under
+                   ``--sample_KTF``: ms/it (median of the print windows after
+                   the first) beside ``train``'s ms per step, the host's
+                   seconds (prefetcher, copy and normalise, step dispatch,
+                   sync at print), one validation sweep and one snapshot save.
+ 15. timing      — CUDA-event times of each kernel, its plain version and the
                    serving forwards (the forwards at both serving and both
                    training shapes, the adjoints at both training shapes;
                    with ``--baseline``, another checkout's four kernels in
@@ -101,13 +126,14 @@ import torch
 from vfi_tpu_torch.api import VideoInpainter
 from vfi_tpu_torch.cli import compute_quant_results as quant_cli
 from vfi_tpu_torch.cli import predict as predict_cli
+from vfi_tpu_torch.cli import train as train_cli
 from vfi_tpu_torch.data import native_loader
-from vfi_tpu_torch.data.datasets import ContiguousVideoClipDataset
+from vfi_tpu_torch.data.datasets import ContiguousVideoClipDataset, batch_iterator
 from vfi_tpu_torch.data.synthetic import make_videolist
 from vfi_tpu_torch.models.registry import create_model, model_config
 from vfi_tpu_torch.ops import _kernels
 from vfi_tpu_torch.ops import sepconv as sepconv_ops
-from vfi_tpu_torch.train.environments import create_training_environment
+from vfi_tpu_torch.train.environments import L2GDLDiscEnvironment, create_training_environment
 from vfi_tpu_torch.utils import checkpoint as ckpt
 from vfi_tpu_torch.utils.config import TrainConfig
 from vfi_tpu_torch.utils.png import read_png, write_png
@@ -922,34 +948,318 @@ def _train_run(key: str, B: int, H: int, W: int, C: int, dtype: str, gen, warmup
     gate(finite, f"non-finite loss terms in {key} {dtype} training")
     del env, state, targets, terms
     torch.cuda.empty_cache()
-    return warmup + timed + split
+    return warmup + timed + split, step_ms
 
 
 def _expect_train(n_g_updates: int) -> dict:
     return {"sepconv_fwd_mxu": 2 * n_g_updates, "sepconv_bwd_vh": 2 * n_g_updates, "sepconv_bwd_x": 2 * n_g_updates}
 
 
-def phase_train(gen) -> dict:
+def phase_train(gen) -> tuple[dict, float]:
     """TAI_gray training at full width, B=8, bf16 mixed precision then f32:
     3 warm-up steps, 5 timed steps, 3 steps with the G and D updates timed
-    apart.  Returns each kernel's launches in this path's run."""
+    apart.  Returns each kernel's launches in this path's run and the bf16
+    ms per step."""
     _reset_launch_counts()
-    n_g_updates = sum(_train_run("TAI_gray", 8, 128, 128, 1, dtype, gen, 3, 5, 3) for dtype in ("bfloat16", "float32"))
+    runs = {dtype: _train_run("TAI_gray", 8, 128, 128, 1, dtype, gen, 3, 5, 3) for dtype in ("bfloat16", "float32")}
+    n_g_updates = sum(n for n, _ in runs.values())
     launches = _launch_counts()
     emit("train_launches", model="TAI_gray", g_updates=n_g_updates, **launches)
     _gate_launches("train", launches, _expect_train(n_g_updates))
-    return launches
+    return launches, runs["bfloat16"][1]
 
 
 def phase_train_color(gen) -> dict:
     """TAI_color at 256x320, B=4, bf16 mixed precision: 1 warm-up step, then
     3 steps with the G and D updates timed apart."""
     _reset_launch_counts()
-    n_g_updates = _train_run("TAI_color", 4, 256, 320, 3, "bfloat16", gen, 1, 0, 3)
+    n_g_updates, _ = _train_run("TAI_color", 4, 256, 320, 3, "bfloat16", gen, 1, 0, 3)
     launches = _launch_counts()
     emit("train_color_launches", model="TAI_color", g_updates=n_g_updates, **launches)
     _gate_launches("train_color", launches, _expect_train(n_g_updates))
     return launches
+
+
+# The train_cli phase: TAI_gray at the KTH configuration (exp_args/*/KTH) through
+# the train CLI, from a port snapshot of random_jax_params("TAI_gray", 0).
+TRAIN_CLI = dict(model_key="TAI_gray", param_seed=0, disc_seed=3, clip_seed=20, hw=128, K=5, T=5, F=5, alt_T=10,
+                 alt_K=7, alt_F=7, train_clips=64, val_clips=16, batch=8)
+KTH_ARGS = ("@" + os.path.join(REPO, "exp_args", "default_args", "KTH", "train.txt"),
+            "@" + os.path.join(REPO, "exp_args", "extra_args", "KTH", "bi-TAI.txt"))
+# The same configuration at fixed K, T, F (train.txt turns --sample_KTF on, and
+# a store_true flag cannot be turned off after it).
+KTH_FIXED_ARGS = (*(a for k in ("K", "T", "F", "alt_K", "alt_T", "alt_F") for a in (f"--{k}", str(TRAIN_CLI[k]))),
+                  "--c_dim", "1", "--image_size", str(TRAIN_CLI["hw"]), "--model_key", TRAIN_CLI["model_key"])
+
+
+def run_train(args) -> tuple[dict, str]:
+    """``vfi_tpu_torch.cli.train.main(args)`` in this process; (its stats, its stdout)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        stats = train_cli.main(args)
+    return stats, out.getvalue()
+
+
+def _train_cli_lists(root: str) -> dict:
+    """Synthetic .npy clips in place of the KTH videolists: 64 training clips
+    of K+T+F = 15 frames and 16 clips for each validation set at its own
+    length (15, 20 and 19 frames); the visualisation lists are the
+    validation lists.  {flag: videolist}."""
+    c = TRAIN_CLI
+    K, T, F = c["K"], c["T"], c["F"]
+
+    def clips(name, n, frames, seed):
+        return make_videolist(os.path.join(root, name), n, seed, n_frames=frames, hw=c["hw"])
+
+    val = {"": clips("val", c["val_clips"], K + T + F, c["clip_seed"] + 1),
+           "_alt_T": clips("val_alt_T", c["val_clips"], K + c["alt_T"] + F, c["clip_seed"] + 2),
+           "_alt_K_F": clips("val_alt_K_F", c["val_clips"], c["alt_K"] + T + c["alt_F"], c["clip_seed"] + 3)}
+    return {"--train_video_list_path": clips("train", c["train_clips"], K + T + F, c["clip_seed"]),
+            **{f"--val_video_list{k}_path": v for k, v in val.items()},
+            **{f"--vis_video_list{k}_path": v for k, v in val.items()}}
+
+
+def _train_cli_args(root: str, name: str, lists: dict, *extra: str, base=KTH_ARGS) -> list:
+    return [*base, *(a for kv in lists.items() for a in kv), "--name", name, "--batch_size", str(TRAIN_CLI["batch"]),
+            "--checkpoints_dir", os.path.join(root, "ckpt"), "--tensorboard_dir", os.path.join(root, "tb"),
+            "--log_json", os.path.join(root, f"{name}.jsonl"), *extra]
+
+
+def _events(root: str, name: str, kind: str) -> list:
+    with open(os.path.join(root, f"{name}.jsonl")) as f:
+        return [e for e in map(json.loads, f) if e["event"] == kind]
+
+
+def _start_snapshot(root: str, name: str) -> None:
+    """The start snapshot (``<root>/start``, updates 0) as ``<root>/ckpt/<name>/model_latest.ckpt``."""
+    shutil.copytree(os.path.join(root, "start", "model_latest.ckpt"),
+                    os.path.join(root, "ckpt", name, "model_latest.ckpt"))
+
+
+@contextlib.contextmanager
+def step_peak_memory(record: list):
+    """Appends the peak device memory of each ``train_step`` run inside to
+    ``record`` (a CLI's visualisation and validation forwards left out).
+    Synchronises around each step: for untimed runs only."""
+    real = L2GDLDiscEnvironment.train_step
+
+    def measured(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = real(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        record.append(torch.cuda.max_memory_allocated())
+        return out
+
+    L2GDLDiscEnvironment.train_step = measured
+    try:
+        yield record
+    finally:
+        L2GDLDiscEnvironment.train_step = real
+
+
+@contextlib.contextmanager
+def no_tensorboard():
+    """``torch.utils.tensorboard`` unimportable inside, so the train CLI runs without a writer."""
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k.startswith("torch.utils.tensorboard")}
+    sys.modules["torch.utils.tensorboard"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["torch.utils.tensorboard"]
+        sys.modules.update(saved)
+
+
+def _cli_forwards(stats: dict, iters: int, val_events: int) -> int:
+    """Visualisation forwards of a CLI run at --print_freq 1: a train_vis grid
+    per iteration and a sample grid per validation set swept, where a
+    TensorBoard writer exists (none on a machine without tensorboard)."""
+    return iters + val_events if stats["tensorboard"] else 0
+
+
+def phase_train_cli(root: str, lists: dict) -> dict:
+    """TAI_gray at the KTH configuration through ``vfi_tpu_torch.cli.train``:
+    the KTH run (bf16, --device_normalize, --sample_KTF, B=8: 30 iterations,
+    then a resume to 40), an f32 run against ``TAIEnvironment.train_step``
+    driven directly, the direct kernel's route, and --remat against the same
+    run without it.  Returns the launches of each of these paths."""
+    c = TRAIN_CLI
+    hw, B = c["hw"], c["batch"]
+    cfg = TrainConfig(K=c["K"], T=c["T"], F=c["F"])
+    env = create_training_environment(create_model(c["model_key"]), cfg)
+    state = env.init_state((hw, hw), g_params=random_jax_params(c["model_key"], c["param_seed"]),
+                           d_variables=random_jax_disc_variables(cfg, hw, hw, 1, c["disc_seed"]), device="cpu")
+    ckpt.save_snapshot(os.path.join(root, "start"), "model_latest.ckpt", state,
+                       {"updates": 0, "sum_avg_psnr_err": 0.0, "sum_avg_ssim_err": 0.0})
+    del env, state
+    paths = {}
+    bf16 = ("--train_dtype", "bfloat16", "--device_normalize", "--print_freq", "1")
+
+    # The KTH run: snapshots every 10, validation every 15, resumed at 30.
+    _start_snapshot(root, "kth")
+    freq = ("--save_latest_freq", "10", "--validate_freq", "15")
+    _reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stats = [run_train(_train_cli_args(root, "kth", lists, *bf16, *freq, "--max_iter", str(n)))[0] for n in (30, 40)]
+    paths["train_cli"] = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    iters = _events(root, "kth", "iter")
+    vals = _events(root, "kth", "val")
+    resumes = [e["iter"] for e in _events(root, "kth", "resume")]
+    bests = [e["iter"] for e in _events(root, "kth", "best")]
+    saves = _events(root, "kth", "save")
+    snapshots = sorted(os.listdir(os.path.join(root, "ckpt", "kth")))
+    _, counters = ckpt.load_snapshot(os.path.join(root, "ckpt", "kth"), "model_latest.ckpt")
+    g_updates = sum(s["iters"] for s in stats)
+    val_batches = sum(math.ceil(c["val_clips"] / B) for _ in vals)
+    vis = sum(_cli_forwards(s, s["iters"], 3 * len(s["val_s"])) for s in stats)
+    want = {"sepconv_fwd_mxu": 2 * (g_updates + val_batches + vis), "sepconv_bwd_vh": 2 * g_updates,
+            "sepconv_bwd_x": 2 * g_updates}
+    finite = all(math.isfinite(e[k]) for e in iters for k in TERM_NAMES)
+    ktf = [(e["K"], e["T"], e["F"]) for e in iters]
+    emit("train_cli", model=c["model_key"], dtype="bfloat16", batch=B, args=list(KTH_ARGS), iters=len(iters),
+         resumes=resumes, val_events=[(e["iter"], e["tag"], e["psnr"], e["ssim"]) for e in vals], best_iters=bests,
+         save_s=[e["seconds"] for e in saves], snapshots=snapshots, latest_updates=counters["updates"],
+         g_updates=g_updates, val_batches=val_batches, tensorboard=stats[0]["tensorboard"],
+         visualisation_forwards=vis, launches=paths["train_cli"], want_launches=want, finite_terms=finite,
+         mean_T=float(np.mean([k[1] for k in ktf])), distinct_KTF=len(set(ktf)), max_memory_allocated_bytes=peak,
+         last_terms={k: iters[-1][k] for k in TERM_NAMES})
+    print(f"train_cli: TensorBoard writer {'present' if stats[0]['tensorboard'] else 'absent'} on this machine, "
+          f"so {vis} visualisation forwards", flush=True)
+    gate([e["iter"] for e in iters] == list(range(1, 41)), f"train_cli logged iterations {[e['iter'] for e in iters]}")
+    gate(finite, "train_cli: non-finite loss terms")
+    gate(resumes == [0, 30], f"train_cli resume events at {resumes}, want [0, 30]")
+    gate(len(vals) == 6 and bests, f"train_cli: {len(vals)} val events, best at {bests}")
+    gate({"model_latest.ckpt", "model_00000010.ckpt", "model_00000020.ckpt", "model_00000030.ckpt",
+          "model_00000040.ckpt", "model_best.ckpt"} <= set(snapshots), f"train_cli snapshots {snapshots}")
+    gate(counters["updates"] == 40, f"model_latest.ckpt at updates {counters['updates']}")
+    gate(len(set(ktf)) > 1, "train_cli: --sample_KTF sampled one (K, T, F)")
+    _gate_launches("train_cli", paths["train_cli"], want)
+    shutil.rmtree(os.path.join(root, "ckpt", "kth"))  # 493 MB a snapshot at TAI_gray
+
+    # f32 (TF32 off) at B=2, the data in order, against train_step driven directly.
+    _start_snapshot(root, "f32")
+    tf32_before = (True, True)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_before
+    try:
+        _reset_launch_counts()
+        stats, stdout = run_train(_train_cli_args(
+            root, "f32", lists, "--batch_size", "2", "--train_dtype", "float32", "--serial_batches",
+            "--no_backwards", "--no_flip", "--num_threads", "0", "--max_iter", "2", "--print_freq", "1",
+            "--save_latest_freq", "100", "--validate_freq", "100", base=KTH_FIXED_ARGS))
+        paths["train_cli_f32"] = _launch_counts()
+        tf32_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cli_terms = _events(root, "f32", "iter")
+    ds = ContiguousVideoClipDataset(1, lists["--train_video_list_path"], c["K"] + c["T"] + c["F"], False, False,
+                                    (hw, hw), True)
+    env = create_training_environment(create_model(c["model_key"]), cfg)
+    direct = []
+    with uncounted():
+        state, _ = ckpt.load_snapshot(os.path.join(root, "start"), "model_latest.ckpt",
+                                      env.init_state((hw, hw), device="cuda"))
+        for first in (2, 4):  # the init batch is clips 0-1
+            batch = np.stack([ds[i]["targets"] for i in (first, first + 1)])
+            state, m = env.train_step(state, c["K"], c["T"], c["F"], batch)
+            direct.append({k: float(v) for k, v in m.items()})
+    del env, state
+    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for g, w in zip(cli_terms, direct) for k in TERM_NAMES)
+    emit("train_cli_f32", dtype="float32", batch=2, iters=len(cli_terms), terms_max_rel_vs_train_step=rel,
+         tf32_printed="TF32: matmul False, cudnn False" in stdout, tf32_restored=tf32_after == tf32_before,
+         launches=paths["train_cli_f32"])
+    gate(len(cli_terms) == 2 and rel <= 1e-3, f"train CLI f32 terms off train_step by rel {rel} > 1e-3")
+    gate(tf32_after == tf32_before and "TF32: matmul False, cudnn False" in stdout,
+         f"train CLI left TF32 at {tf32_after}, or did not run with it off")
+    _gate_launches("train_cli_f32", paths["train_cli_f32"],
+                   {"sepconv_fwd_mxu": 2 * (2 + _cli_forwards(stats, 2, 0)), "sepconv_bwd_vh": 4, "sepconv_bwd_x": 4})
+
+    # The direct kernel's route, named by a JSON model key (the later key wins).
+    _start_snapshot(root, "pallas")
+    spec = {**model_spec(c["model_key"], "pallas"), "args": []}
+    nofreq = ("--save_latest_freq", "100", "--validate_freq", "100", "--max_iter", "2")
+    _reset_launch_counts()
+    stats, _ = run_train(_train_cli_args(root, "pallas", lists, *bf16, *nofreq, "--model_key", json.dumps(spec)))
+    paths["train_cli_pallas"] = _launch_counts()
+    emit("train_cli_pallas", model_key=spec, launches=paths["train_cli_pallas"])
+    _gate_launches("train_cli_pallas", paths["train_cli_pallas"],
+                   {"sepconv_fwd": 2 * (2 + _cli_forwards(stats, 2, 0)), "sepconv_bwd_vh": 4, "sepconv_bwd_x": 4})
+
+    # --remat against the same two iterations without it, at fixed K=T=F=5 (one
+    # loader thread, so the same data); peak memory of the training steps.
+    runs = {}
+    for remat in (False, True):
+        name = f"remat_{remat}"
+        _start_snapshot(root, name)
+        torch.cuda.empty_cache()
+        _reset_launch_counts()
+        with step_peak_memory([]) as peaks:
+            stats, _ = run_train(_train_cli_args(root, name, lists, *bf16, *nofreq, "--num_threads", "0",
+                                                 *(["--remat"] if remat else []), base=KTH_FIXED_ARGS))
+        runs[remat] = (_launch_counts(), max(peaks), _events(root, name, "iter")[0], stats)
+    paths["train_cli_remat"] = runs[True][0]
+    rel = max(abs(runs[True][2][k] - runs[False][2][k]) / max(abs(runs[False][2][k]), 1e-12) for k in TERM_NAMES)
+    emit("train_cli_remat", dtype="bfloat16", batch=B, K=c["K"], T=c["T"], F=c["F"], launches_remat=runs[True][0],
+         launches_without=runs[False][0], step1_terms_max_rel=rel, step_peak_memory_bytes_remat=runs[True][1],
+         step_peak_memory_bytes_without=runs[False][1])
+    gate(runs[True][0] == runs[False][0], f"--remat changed the launches: {runs[True][0]} vs {runs[False][0]}")
+    _gate_launches("train_cli_remat", runs[True][0], {"sepconv_fwd_mxu": 2 * (2 + _cli_forwards(runs[True][3], 2, 0)),
+                                                      "sepconv_bwd_vh": 4, "sepconv_bwd_x": 4})
+    gate(rel <= 1e-3, f"--remat step-1 terms off the run without it by rel {rel} > 1e-3")
+    return paths
+
+
+def phase_timing_train_cli(root: str, lists: dict, train_ms: float) -> None:
+    """The train CLI timed: TAI_gray B=8 bf16 --device_normalize from a fresh
+    init, 10 warm-up and 50 timed iterations at --print_freq 10, at fixed
+    K=T=F=5 and under --sample_KTF.  ms/it is the median of the print windows
+    after the first, beside the ``train`` phase's ms per step (the step alone
+    on one fixed batch); the host's seconds: waiting for the prefetcher,
+    copying and normalising, dispatching the steps, the sync at each print;
+    one validation sweep and one snapshot save at iteration 60; where a
+    TensorBoard writer exists, the seconds of the train_vis grids (left out
+    of ms/it, as snapshots and validation are).  Two more runs at fixed
+    K, T, F split the loop's cost: without a TensorBoard writer, and without
+    a writer from 8 batches cached on the device (no host data work)."""
+    c = TRAIN_CLI
+    ds = ContiguousVideoClipDataset(1, lists["--train_video_list_path"], c["K"] + c["T"] + c["F"], True, True,
+                                    (c["hw"], c["hw"]), True, emit_uint8=True)
+    batches = batch_iterator(ds, c["batch"], True, True, seed=0, loop=True)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        next(batches)
+    emit("timing_train_cli_decode", clips="numpy .npy", batch=c["batch"], device_normalize=True,
+         host_ms_per_batch=(time.perf_counter() - t0) / 8 * 1e3)
+    every = ("--save_latest_freq", "60", "--validate_freq", "60")
+    never = ("--save_latest_freq", "1000", "--validate_freq", "1000")
+    modes = (("fixed", KTH_FIXED_ARGS, every, False), ("sample_KTF", KTH_ARGS, every, False),
+             ("fixed_no_writer", KTH_FIXED_ARGS, never, True),
+             ("fixed_no_writer_device_cache", KTH_FIXED_ARGS, never + ("--device_cache", "8"), True))
+    for mode, base, extra, blind in modes:
+        name = f"timing_{mode}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with uncounted(), (no_tensorboard() if blind else contextlib.nullcontext()):
+            stats, _ = run_train(_train_cli_args(
+                root, name, lists, "--train_dtype", "bfloat16", "--device_normalize", "--max_iter", "60",
+                "--print_freq", "10", *extra, base=base))
+        windows = [e["ms_per_it"] for e in _events(root, name, "iter")]
+        ms = float(np.median(windows[1:]))
+        rng = np.random.RandomState(0)  # the CLI's --seed: its (K, T, F) draws
+        T_all = [c["T"]] * 60 if mode == "fixed" else [
+            (rng.randint(2, c["K"] + 1), rng.randint(1, c["T"] + 1), rng.randint(2, c["F"] + 1))[1] for _ in range(60)]
+        n = stats["iters"]
+        emit("timing_train_cli", model=c["model_key"], mode=mode, dtype="bfloat16", batch=c["batch"],
+             device_normalize=True, iters=n, ms_per_it=ms, iterations_per_s=1e3 / ms, ms_per_it_windows=windows,
+             train_phase_ms_per_step=train_ms, over_train_phase=ms / train_ms - 1.0 if train_ms else None,
+             mean_T_timed=float(np.mean(T_all[10:])),
+             wait_data_s=stats["wait_data_s"], prep_s=stats["prep_s"], step_s=stats["step_s"],
+             sync_s=stats["sync_s"], host_ms_per_it={k: stats[k] / n * 1e3 for k in
+                                                     ("wait_data_s", "prep_s", "step_s", "sync_s")},
+             tensorboard=stats["tensorboard"], train_vis_s=stats["vis_s"],
+             val_sweep_s=stats["val_s"][0] if stats["val_s"] else None,
+             save_s=next((e["seconds"] for e in _events(root, name, "save")), None),
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
 
 
 # The forwards' main-path shapes (B*T, H, W, C): TAI_gray serving at B=64 and
@@ -1245,8 +1555,17 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     paths["train_pallas"] = phase_train_pallas()
     torch.cuda.empty_cache()
-    paths["train"] = phase_train(gen)
+    paths["train"], train_ms = phase_train(gen)
     paths["train_color"] = phase_train_color(gen)
+    train_cli_root = os.path.join(str(_kernels.BUILD_DIR), "train_cli_smoke")
+    shutil.rmtree(train_cli_root, ignore_errors=True)
+    try:
+        lists = _train_cli_lists(train_cli_root)
+        paths.update(phase_train_cli(train_cli_root, lists))
+        phase_timing_train_cli(train_cli_root, lists, train_ms)
+    finally:
+        shutil.rmtree(train_cli_root, ignore_errors=True)
+    torch.cuda.empty_cache()
     phase_timing(state, peak, main_err, adj_err, paths, gen, baseline)
 
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)

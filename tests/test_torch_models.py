@@ -62,14 +62,16 @@ def test_diff_frames_and_fold_match_jax():
 
 
 @pytest.mark.parametrize("key", ["TAI_gray", "TAI_color", "TimeWeightedInterpolationFillInModel_gray",
-                                 "TimeWeightedInterpolationFillInModel_color"])
+                                 "TimeWeightedInterpolationFillInModel_color", "MCNet_gray", "MCNet_color",
+                                 "BidirectionalSimpleAverageFillInModel_color",
+                                 "BidirectionalTimeWeightedAverageFillInModel_gray", "TimeWeightedPFFillInModel"])
 def test_random_jax_params_match_the_flax_tree(key):
     """Every flax parameter of the JAX model, with its shape, and nothing else;
     and every port parameter is filled from it."""
     jmodel = jregistry.create_model(key)
-    c = jmodel.c_dim
+    c = getattr(jmodel, "c_dim", 1)
     spec = jax.ShapeDtypeStruct((1, 2, 64, 64, c), np.float32)
-    template = jax.eval_shape(lambda a, b: jmodel.init(jax.random.PRNGKey(0), 1, a, b), spec, spec)["params"]
+    template = jax.eval_shape(lambda a, b: jmodel.init(jax.random.PRNGKey(0), 1, a, b), spec, spec).get("params", {})
     want = {tuple(k.key for k in path): leaf.shape for path, leaf in jax.tree_util.tree_flatten_with_path(template)[0]}
 
     jp = random_jax_params(key, seed=0)
@@ -104,14 +106,20 @@ def test_params_from_jax_conv_layout():
 
 
 def test_registry_keys():
-    assert model_keys() == sorted(["TAI_gray", "TAI_color", "TimeWeightedInterpolationFillInModel_gray",
-                                   "TimeWeightedInterpolationFillInModel_color"])
+    """The ported keys are vfi_tpu's keys but OFFillInModel, SloMo and SCT,
+    with vfi_tpu's classes and widths; an unported key raises, naming the
+    ported keys and the ROADMAP items that port the rest."""
+    unported = [k for k in jregistry.model_keys() if k == "OFFillInModel" or k.startswith(("SloMo", "SCT"))]
+    assert model_keys() == sorted(set(jregistry.model_keys()) - set(unported)) and len(model_keys()) == 11
     for key in model_keys():
         with torch.device("meta"):
             port = create_model(key)
         jm = jregistry.create_model(key)
         assert type(port).__name__ == type(jm).__name__
-        assert (port.c_dim, port.gf_dim, port.kernelnet.ks, port.kernelnet.num_block) == (
-            jm.c_dim, jm.gf_dim, jm.ks, jm.num_block)
-    with pytest.raises(KeyError, match="TAI_gray"):
-        create_model("MCNet_gray")
+        if hasattr(jm, "gf_dim"):
+            assert (port.c_dim, port.gf_dim) == (jm.c_dim, jm.gf_dim)
+        if hasattr(jm, "ks"):
+            assert (port.kernelnet.ks, port.kernelnet.num_block) == (jm.ks, jm.num_block)
+    for key in unported:
+        with pytest.raises(KeyError, match="TAI_gray.*item 7.*item 11"):
+            create_model(key)

@@ -1,6 +1,9 @@
 """Fill-in models of the port."""
 
-from .fill_in import TAIFillInModel, TWIFillInModel
+from .fill_in import (BidirectionalSimpleAverageFillInModel, BidirectionalTimeWeightedAverageFillInModel,
+                      MCNetFillInModel, TAIFillInModel, TimeWeightedPFFillInModel, TWIFillInModel)
 from .registry import create_model, model_keys
 
-__all__ = ["TAIFillInModel", "TWIFillInModel", "create_model", "model_keys"]
+__all__ = ["BidirectionalSimpleAverageFillInModel", "BidirectionalTimeWeightedAverageFillInModel",
+           "MCNetFillInModel", "TAIFillInModel", "TWIFillInModel", "TimeWeightedPFFillInModel", "create_model",
+           "model_keys"]

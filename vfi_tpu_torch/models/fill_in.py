@@ -1,8 +1,13 @@
 """Fill-in models (counterpart of ``vfi_tpu/models/fill_in.py``), static-shape path.
 
 Videos are batch-major channels-last ``[B, T, H, W, C]`` in [-1, 1], as in
-vfi_tpu.  TAI and TWI return ``pred``, ``pred_forward``, ``pred_backward`` and
+vfi_tpu.  Every model returns ``pred``; the bidirectional ones (TAI, TWI,
+bi-TWA, bi-SA) add ``pred_forward`` and ``pred_backward``, and TAI and TWI
 the two pre-blend interpolation-net outputs.
+
+The MC-Net models take vfi_tpu's ``remat`` (gradient checkpointing of the
+rollout, ``nn/mcnet.py``) and ``scan_rollout``, which only shortens vfi_tpu's
+XLA compiles: it is accepted and ignored.
 
 When K == F the forward and backward MC-Net rollouts run as one rollout over
 the doubled batch ``[fwd; bwd]``; the per-timestep blend is folded into the
@@ -42,14 +47,20 @@ def _video(x: torch.Tensor) -> torch.Tensor:
     return x.permute(1, 0, 3, 4, 2)
 
 
-class BidirectionalMCNetModel(nn.Module):
+class _MCNetModel(nn.Module):
+    """A model built on one MC-Net (``mcnet``)."""
+
+    def __init__(self, gf_dim: int, c_dim: int, feature_size: int = 3, forget_bias: float = 1.0,
+                 remat: bool = False, scan_rollout: bool = False):
+        super().__init__()
+        del scan_rollout  # vfi_tpu's compile-time form of the same rollout
+        self.gf_dim, self.c_dim = gf_dim, c_dim
+        self.mcnet = MCNet(gf_dim, c_dim, feature_size, forget_bias, remat=remat)
+
+
+class BidirectionalMCNetModel(_MCNetModel):
     """MC-Net forward from the preceding frames and backward from the
     time-reversed following frames."""
-
-    def __init__(self, gf_dim: int, c_dim: int, feature_size: int = 3, forget_bias: float = 1.0):
-        super().__init__()
-        self.gf_dim, self.c_dim = gf_dim, c_dim
-        self.mcnet = MCNet(gf_dim, c_dim, feature_size, forget_bias)
 
     def bidirectional_rollout(self, T: int, preceding, following) -> tuple[RolloutStep, RolloutStep]:
         """Both rollouts, time-major NCHW; the backward one back in natural time order."""
@@ -78,9 +89,9 @@ class TAIFillInModel(BidirectionalMCNetModel):
     use_ratio = True
 
     def __init__(self, gf_dim: int, c_dim: int, feature_size: int = 3, forget_bias: float = 1.0,
-                 ks: int = 51, num_block: int = 5, kf_dim: int = 32, layers: int = 3,
-                 align_corners: bool = True, sepconv_impl: Optional[str] = None):
-        super().__init__(gf_dim, c_dim, feature_size, forget_bias)
+                 remat: bool = False, scan_rollout: bool = False, ks: int = 51, num_block: int = 5,
+                 kf_dim: int = 32, layers: int = 3, align_corners: bool = True, sepconv_impl: Optional[str] = None):
+        super().__init__(gf_dim, c_dim, feature_size, forget_bias, remat, scan_rollout)
         self.merge_residual2 = Residual(gf_dim * 4, kf_dim * 2)
         self.merge_residual3 = Residual(gf_dim * 8, kf_dim * 4)
         self.kernelnet = KernelNet(gf_dim, ks, num_block, layers, kf_dim, use_ratio=self.use_ratio,
@@ -118,3 +129,40 @@ class TWIFillInModel(TAIFillInModel):
     """bi-TWI: time-agnostic kernel net + time-weighted blend."""
 
     use_ratio = False
+
+
+class BidirectionalTimeWeightedAverageFillInModel(BidirectionalMCNetModel):
+    """bi-TWA: the two streams' predictions averaged with time weights."""
+
+    def forward(self, T: int, preceding, following) -> Dict[str, torch.Tensor]:
+        fwd, bwd = self.bidirectional_rollout(T, preceding, following)
+        w = time_weights(T, preceding.dtype, preceding.device)[:, None, None, None, None]
+        comb = (1.0 - w) * fwd.pred + w * bwd.pred
+        return {"pred": _video(comb), "pred_forward": _video(fwd.pred), "pred_backward": _video(bwd.pred)}
+
+
+class BidirectionalSimpleAverageFillInModel(BidirectionalMCNetModel):
+    """bi-SA: the plain 0.5/0.5 average of the two streams."""
+
+    def forward(self, T: int, preceding, following) -> Dict[str, torch.Tensor]:
+        fwd, bwd = self.bidirectional_rollout(T, preceding, following)
+        comb = 0.5 * fwd.pred + 0.5 * bwd.pred
+        return {"pred": _video(comb), "pred_forward": _video(fwd.pred), "pred_backward": _video(bwd.pred)}
+
+
+class MCNetFillInModel(_MCNetModel):
+    """Forward-only baseline: MC-Net from the preceding frames alone."""
+
+    def forward(self, T: int, preceding, following) -> Dict[str, torch.Tensor]:
+        del following
+        out = self.mcnet(T, _diff_frames(preceding), preceding[:, -1])
+        return {"pred": _video(out.pred)}
+
+
+class TimeWeightedPFFillInModel(nn.Module):
+    """Parameter-free baseline: per-timestep weighted average of the last
+    preceding and the first following frame."""
+
+    def forward(self, T: int, preceding, following) -> Dict[str, torch.Tensor]:
+        w = time_weights(T, preceding.dtype, preceding.device)[None, :, None, None, None]
+        return {"pred": (1.0 - w) * preceding[:, -1:] + w * following[:, :1]}

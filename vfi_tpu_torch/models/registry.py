@@ -1,5 +1,7 @@
 """Model registry (counterpart of ``vfi_tpu/models/registry.py``) for the
-classes ported so far.
+classes ported so far: TAI, TWI, bi-TWA, bi-SA, MC-Net and TW_P_F.  vfi_tpu's
+other keys (``OFFillInModel``, ROADMAP.md queue 1 item 7; SloMo and SCT,
+item 11) raise ``KeyError``.
 
 A model is named by a registry key, by a JSON file, or by a JSON literal,
 as in vfi_tpu: ``{"class": name, "args": [...], "kwargs": {...}}`` (the
@@ -13,13 +15,22 @@ import json
 import os
 from typing import Any, Dict, Union
 
-from .fill_in import TAIFillInModel, TWIFillInModel
+from .fill_in import (BidirectionalSimpleAverageFillInModel, BidirectionalTimeWeightedAverageFillInModel,
+                      MCNetFillInModel, TAIFillInModel, TimeWeightedPFFillInModel, TWIFillInModel)
 
-_CLASSES = {"TAIFillInModel": TAIFillInModel, "TWIFillInModel": TWIFillInModel}
+_CLASSES = {cls.__name__: cls for cls in (
+    TAIFillInModel, TWIFillInModel, BidirectionalSimpleAverageFillInModel,
+    BidirectionalTimeWeightedAverageFillInModel, MCNetFillInModel, TimeWeightedPFFillInModel)}
+
+_UNPORTED = ("OFFillInModel is ROADMAP.md queue 1 item 7; the SloMo and SCT models are item 11")
 
 
 def _kth(cls: str, c_dim: int, num_block: int) -> Dict[str, Any]:
     return {"class": cls, "kwargs": dict(gf_dim=64, c_dim=c_dim, feature_size=3, ks=51, num_block=num_block)}
+
+
+def _mcnet(cls: str, c_dim: int) -> Dict[str, Any]:
+    return {"class": cls, "kwargs": dict(gf_dim=64, c_dim=c_dim, feature_size=3)}
 
 
 _REGISTRY: Dict[str, Dict[str, Any]] = {
@@ -27,6 +38,13 @@ _REGISTRY: Dict[str, Dict[str, Any]] = {
     "TAI_color": _kth("TAIFillInModel", 3, 4),
     "TimeWeightedInterpolationFillInModel_gray": _kth("TWIFillInModel", 1, 5),
     "TimeWeightedInterpolationFillInModel_color": _kth("TWIFillInModel", 3, 4),
+    "MCNet_gray": _mcnet("MCNetFillInModel", 1),
+    "MCNet_color": _mcnet("MCNetFillInModel", 3),
+    "BidirectionalSimpleAverageFillInModel_gray": _mcnet("BidirectionalSimpleAverageFillInModel", 1),
+    "BidirectionalSimpleAverageFillInModel_color": _mcnet("BidirectionalSimpleAverageFillInModel", 3),
+    "BidirectionalTimeWeightedAverageFillInModel_gray": _mcnet("BidirectionalTimeWeightedAverageFillInModel", 1),
+    "BidirectionalTimeWeightedAverageFillInModel_color": _mcnet("BidirectionalTimeWeightedAverageFillInModel", 3),
+    "TimeWeightedPFFillInModel": {"class": "TimeWeightedPFFillInModel", "kwargs": {}},
 }
 
 ModelSpec = Union[str, Dict[str, Any]]
@@ -59,11 +77,11 @@ def model_config(model: ModelSpec) -> Dict[str, Any]:
         except ValueError:
             raise KeyError(
                 f"Unknown model key {model!r}; not a registry key, file, or JSON literal. "
-                f"Known keys: {model_keys()}"
+                f"Known keys: {model_keys()} ({_UNPORTED})"
             ) from None
         spec = _json_spec(info)
     if spec.get("class") not in _CLASSES:
-        raise KeyError(f"unknown model class {spec.get('class')!r}; ported: {sorted(_CLASSES)}")
+        raise KeyError(f"unknown model class {spec.get('class')!r}; ported: {sorted(_CLASSES)} ({_UNPORTED})")
     return spec
 
 

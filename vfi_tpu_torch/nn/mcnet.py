@@ -3,6 +3,12 @@
 
 The modules compute in NCHW.  :class:`MCNet` takes vfi_tpu's channels-last
 inputs and returns its rollout as NCHW tensors stacked over a leading T axis.
+
+``remat`` is vfi_tpu's: while autograd records, the seven submodules of a
+rollout step that vfi_tpu wraps in ``nn.remat`` (``MotionEnc``,
+``ContentEnc``, ``CombLayers``, ``Residual`` x3, ``DecCnn``) run under
+``torch.utils.checkpoint`` and are recomputed in the backward pass; the
+ConvLSTM cell is stored as vfi_tpu stores it.
 """
 
 from __future__ import annotations
@@ -12,6 +18,8 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.image import fixed_unpooling, to_gray_frames
 from .layers import Conv, ConvLSTMCell, max_pool2
@@ -134,9 +142,11 @@ class MCNet(nn.Module):
     """K-1 warm-up steps over difference frames, then a T-step autoregressive
     rollout that re-feeds predicted-frame differences."""
 
-    def __init__(self, gf_dim: int, c_dim: int, lstm_kernel: int = 3, forget_bias: float = 1.0):
+    def __init__(self, gf_dim: int, c_dim: int, lstm_kernel: int = 3, forget_bias: float = 1.0,
+                 remat: bool = False):
         super().__init__()
         self.gf_dim = gf_dim
+        self.remat = remat
         self.motion_enc = MotionEnc(gf_dim)
         self.content_enc = ContentEnc(gf_dim, c_dim)
         self.conv_lstm = ConvLSTMCell(4 * gf_dim, 4 * gf_dim, lstm_kernel, forget_bias)
@@ -146,13 +156,21 @@ class MCNet(nn.Module):
         self.residual3 = Residual(gf_dim * 8, gf_dim * 4)
         self.dec_cnn = DecCnn(c_dim, gf_dim)
 
+    def _call(self, module: nn.Module, *args):
+        """``module(*args)``, checkpointed under ``remat`` while autograd records.
+        The recomputation gets the parameters the forward used, so a module
+        run on cast copies (``functional_call``) recomputes on the same copies."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return module(*args)
+        return checkpoint(functional_call, module, dict(module.named_parameters()), args, use_reentrant=False)
+
     def _predict(self, xt, h_dyn, res_m) -> RolloutStep:
-        h_cont, res_c = self.content_enc(xt)
-        h_tpl = self.comb_layers(h_dyn, h_cont)
-        r1 = self.residual1(res_m[0], res_c[0])
-        r2 = self.residual2(res_m[1], res_c[1])
-        r3 = self.residual3(res_m[2], res_c[2])
-        return RolloutStep(self.dec_cnn(h_tpl, r1, r2, r3), h_dyn, h_cont, r1, r2, r3)
+        h_cont, res_c = self._call(self.content_enc, xt)
+        h_tpl = self._call(self.comb_layers, h_dyn, h_cont)
+        r1 = self._call(self.residual1, res_m[0], res_c[0])
+        r2 = self._call(self.residual2, res_m[1], res_c[1])
+        r3 = self._call(self.residual3, res_m[2], res_c[2])
+        return RolloutStep(self._call(self.dec_cnn, h_tpl, r1, r2, r3), h_dyn, h_cont, r1, r2, r3)
 
     def forward(self, T: int, diff_in: torch.Tensor, xt: torch.Tensor) -> RolloutStep:
         """
@@ -167,7 +185,7 @@ class MCNet(nn.Module):
         # All warm-up difference frames are known up front: one batched
         # MotionEnc call over B*(K-1); only the ConvLSTM chain is sequential.
         flat = diff_in.reshape(B * Km1, H, W, 1).permute(0, 3, 1, 2)
-        enc_all, res_all = self.motion_enc(flat)
+        enc_all, res_all = self._call(self.motion_enc, flat)
         enc_all = enc_all.reshape(B, Km1, *enc_all.shape[1:])
         res_m = tuple(r.reshape(B, Km1, *r.shape[1:])[:, -1] for r in res_all)
         h_dyn = None
@@ -177,7 +195,7 @@ class MCNet(nn.Module):
         steps = [self._predict(xt, h_dyn, res_m)]
         for _ in range(1, T):
             x_hat = steps[-1].pred
-            enc_h, res_m = self.motion_enc(_gray_nchw(x_hat) - _gray_nchw(xt))
+            enc_h, res_m = self._call(self.motion_enc, _gray_nchw(x_hat) - _gray_nchw(xt))
             h_dyn, state = self.conv_lstm(enc_h, state)
             xt = x_hat
             steps.append(self._predict(xt, h_dyn, res_m))

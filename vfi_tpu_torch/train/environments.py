@@ -29,6 +29,7 @@ context frames; in the D step its parameters and all videos are bf16, while
 from __future__ import annotations
 
 import copy
+import os
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -38,7 +39,8 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from ..api import resolve_device
-from ..models.fill_in import TAIFillInModel
+from ..models.fill_in import (BidirectionalSimpleAverageFillInModel, BidirectionalTimeWeightedAverageFillInModel,
+                              MCNetFillInModel, TAIFillInModel)
 from ..nn.discriminator import SNDiscriminator
 from ..ops.image import inverse_transform
 from ..ops.metrics import psnr, quantize_uint8, ssim
@@ -82,7 +84,8 @@ class BaseEnvironment:
     """Shared: the generator's evaluation; subclasses add losses and optimizers.
 
     ``forward_test`` and ``eval_metrics`` run the environment's model as it
-    stands (its weights, device and dtype)."""
+    stands (its weights and dtype) on the inputs' device; a model without
+    parameters (``TimeWeightedPFFillInModel``) works the same way."""
 
     needs_snapshot = True  # False for parameter-free models
 
@@ -95,14 +98,16 @@ class BaseEnvironment:
         return self.model(T, preceding, following)
 
     @torch.inference_mode()
-    def eval_metrics(self, K: int, T: int, F: int, targets: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def eval_metrics(self, K: int, T: int, F: int, targets, device=None) -> Dict[str, torch.Tensor]:
         """Per-(video, timestep) PSNR/SSIM/L2 ``[B, T]`` of a batch of videos
-        ``[B, K+T+F, H, W, C]`` in [-1, 1] (any array), scored in float32 on
-        the model's device; the model's inputs take its dtype."""
-        w = next(self.model.parameters())
-        targets = torch.as_tensor(targets, dtype=torch.float32, device=w.device)
+        ``[B, K+T+F, H, W, C]`` in [-1, 1], scored in float32.  The model
+        takes a tensor's frames in their dtype on their device, an array's in
+        float32 on ``device`` (default: the CPU)."""
+        if not torch.is_tensor(targets):
+            targets = torch.as_tensor(targets, dtype=torch.float32, device=device)
         p, m, f = split_batch(targets, K, T, F)
-        pred = self.model(T, p.to(w.dtype), f.to(w.dtype))["pred"].float()
+        pred = self.model(T, p, f)["pred"].float()
+        m = m.float()
         pred_u8, gt_u8 = quantize_uint8(pred), quantize_uint8(m)
         return {
             "psnr": psnr(pred_u8, gt_u8, clamp=100.0),
@@ -268,17 +273,32 @@ class TAIEnvironment(L2GDLDiscEnvironment):
         }
 
 
+class MCNetEnvironment(L2GDLDiscEnvironment):
+    """The forward-only MC-Net baseline: L2 + GDL + SN-GAN; K >= 2 sampling."""
+
+    min_K = 2
+
+
 def create_training_environment(model: nn.Module, cfg) -> L2GDLDiscEnvironment:
-    """The environment for a generator: TAI and TWI (a TAI subclass) train in
-    :class:`TAIEnvironment`; the other models are not ported yet."""
-    if isinstance(model, TAIFillInModel):
+    """The environment for a generator, as vfi_tpu dispatches: TAI, TWI (a
+    TAI subclass), bi-SA and bi-TWA train in :class:`TAIEnvironment`, MC-Net
+    in :class:`MCNetEnvironment`; any other model raises ``TypeError``.
+    Raises ``RuntimeError`` when ``VFI_INT8`` asks for vfi_tpu's int8 convs,
+    which are inference-only (their rounding has a zero gradient)."""
+    if os.environ.get("VFI_INT8", "0") in ("1", "2"):
+        raise RuntimeError("VFI_INT8 is set but int8 convs are inference-only (zero gradients through the "
+                           "rounding); unset it for training")
+    if isinstance(model, (TAIFillInModel, BidirectionalSimpleAverageFillInModel,
+                          BidirectionalTimeWeightedAverageFillInModel)):
         return TAIEnvironment(model, cfg)
+    if isinstance(model, MCNetFillInModel):
+        return MCNetEnvironment(model, cfg)
     raise TypeError(f"no training environment for model type {type(model).__name__}")
 
 
 def create_eval_environment(model: nn.Module, cfg) -> BaseEnvironment:
     """An evaluation environment; ``needs_snapshot`` is false for a model
-    without parameters (none is ported yet), which serves without a snapshot."""
+    without parameters, which serves without a snapshot."""
     env = BaseEnvironment(model, cfg)
     env.needs_snapshot = any(True for _ in model.parameters())
     return env

@@ -6,7 +6,9 @@ src/options/options.py:6-209), with one addition: ``--device`` (default
 ``cuda``), the port's explicit device, where vfi_tpu reads ``JAX_PLATFORMS``.
 Flags the port cannot honour yet raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item, never silently ignored: ``--quantize`` other than
-``none`` (item 10) and ``--mesh_shape`` (item 9).  Option files compose as
+``none`` (item 10), ``--mesh_shape`` (item 9), and a launch of several
+processes under ``torch.distributed`` (``WORLD_SIZE`` > 1, item 9; vfi_tpu's
+multi-host branch).  Option files compose as
 vfi_tpu's do, through argparse's ``@file`` syntax with '#'-comment stripping:
 
     python -m vfi_tpu_torch.cli.predict @exp_args/default_args/KTH/test_5.txt @exp_args/extra_args/KTH/bi-TAI.txt
@@ -17,6 +19,7 @@ vfi_tpu's do, through argparse's ``@file`` syntax with '#'-comment stripping:
 from __future__ import annotations
 
 import argparse
+import os
 import shlex
 import sys
 from dataclasses import dataclass
@@ -222,6 +225,10 @@ def refuse_unported(opt) -> None:
     if getattr(opt, "mesh_shape", None) is not None:
         raise NotImplementedError("--mesh_shape: data parallelism over several GPUs is not ported yet "
                                   "(ROADMAP.md queue 1 item 9)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        raise NotImplementedError(f"WORLD_SIZE={world}: runs over several processes (torch.distributed) are "
+                                  "not ported yet (ROADMAP.md queue 1 item 9)")
 
 
 def parse_args(parser: ArgFileParser, argv: Optional[Sequence[str]] = None, allow_unknown: bool = False):
