@@ -11,7 +11,9 @@ through ``vfi_tpu_torch.train.environments``, at two configurations: TAI_gray
 color width (gf=64, ks=51, num_block=4, C=3, 256x320).  The sepconv forward
 takes one of two kernels, as vfi_tpu's ``sepconv_impl`` says: the banded
 tensor-core kernel by default (``"pallas_mxu"``), the direct kernel under
-``"pallas"``.  Phases, one JSON line each:
+``"pallas"``.  Then the rest of the model zoo through the same entry points:
+Super SloMo at UCF-101's configuration and the SCT family at KTH's.
+Phases, one JSON line each:
 
   1. device      — the card's name and count; fails without CUDA.
   2. build       — compiles every CUDA kernel from ``vfi_tpu_torch/ops/csrc``
@@ -93,7 +95,42 @@ tensor-core kernel by default (``"pallas_mxu"``), the direct kernel under
                    the first) beside ``train``'s ms per step, the host's
                    seconds (prefetcher, copy and normalise, step dispatch,
                    sync at print), one validation sweep and one snapshot save.
- 15. timing      — CUDA-event times of each kernel, its plain version and the
+ 15-21. the model zoo (Super SloMo, SCT), none of which runs sepconv: each
+                   path gates 0 launches of every kernel; ``zoo`` prints the
+                   seven phases' wall seconds.
+     slomo_golden — SloMoFillInModel_color at 256x320, B=2, T=5, f32, in both
+                   warp modes, against ``tests/torch_golden_slomo_color.npz``:
+                   max-abs <= 5e-3 at 4096 points of each output, uint8 PSNR
+                   >= 45 dB at 131072 points of pred.
+     slomo_predict — SloMo served by ``cli.predict`` at UCF-101's test
+                   argfiles (K=4, T=5, F=4, 240x320 padded to 256x320, B=16)
+                   from a port snapshot, 32 synthetic 13-frame clips, bf16
+                   ``--device_normalize``, twice: every PNG written at
+                   240x320, finite metrics from ``compute_quant_results``,
+                   middle frames/s of the loop and of the forward.
+     slomo_train_cli — SloMo through ``cli.train`` at UCF-101's train
+                   argfiles (160x192, ``--sample_KTF``) with a seeded VGG16
+                   .npz, bf16 B=8: 20 iterations, a resume to 30, the
+                   events, and every update's rate the schedule's
+                   (``--lr_decay_count 15``); then f32 B=2 against
+                   ``SloMoEnvironment.train_step`` (rel 1e-3).
+     slomo_train_golden — two f32 SloMo steps (B=1, 160x192, T=3) against
+                   ``tests/torch_golden_train_slomo.npz``: terms rel 1e-3,
+                   gradient projections global-L2-relative 1e-3.
+     sct_golden  — SCT Forward, Inward, Bypass, FrameEncDecBN (``_gray``,
+                   d_v=256) and Forward's teacher-forced pass at 128x128,
+                   K=T=F=5, f32, against ``tests/torch_golden_sct_gray.npz``
+                   (the forward gates); RandomB bf16 B=8: finite, the same
+                   seed bit-identical.
+     sct_train_cli — SCT Forward through ``cli.train`` at the KTH train
+                   argfile, teacher forcing falling from 0.99 to 0.007, bf16
+                   B=8 from a port snapshot: 20 iterations and a resume to
+                   30, both branches in the events; then f32 B=2 against
+                   ``SCTEnvironment.train_step``.
+     timing_zoo  — ms per batch serving SloMo (bf16 B=16, f32 B=2) and SCT
+                   Forward and RandomB (bf16 B=8), ms per bf16 training step
+                   of SloMo (B=8, 160x192) and SCT Forward (B=8).
+ 22. timing      — CUDA-event times of each kernel, its plain version and the
                    serving forwards (the forwards at both serving and both
                    training shapes, the adjoints at both training shapes;
                    with ``--baseline``, another checkout's four kernels in
@@ -131,6 +168,7 @@ from vfi_tpu_torch.data import native_loader
 from vfi_tpu_torch.data.datasets import ContiguousVideoClipDataset, batch_iterator
 from vfi_tpu_torch.data.synthetic import make_videolist
 from vfi_tpu_torch.models.registry import create_model, model_config
+from vfi_tpu_torch.nn.vgg import random_vgg16_npz
 from vfi_tpu_torch.ops import _kernels
 from vfi_tpu_torch.ops import sepconv as sepconv_ops
 from vfi_tpu_torch.train.environments import L2GDLDiscEnvironment, create_training_environment
@@ -273,6 +311,148 @@ def check_color_golden(out: dict, golden) -> dict:
         if key == "pred":
             res["pred_u8_psnr_db"] = u8_psnr(u8(got), golden["pred_u8"])
     return res
+
+
+# The model zoo's goldens (tests/make_torch_{slomo,sct,train_slomo}_golden.py):
+# vfi_tpu on the CPU in f32.  Each output's float values are kept at n_points
+# positions and pred's uint8 values at n_u8_points (all of pred where that is
+# its size), the positions drawn from point_seed by sampled_points.
+SLOMO_GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_slomo_color.npz")
+SLOMO_GOLDEN = dict(model_key="SloMoFillInModel_color", param_seed=0, input_seed=8, B=2, K=4, F=4, T=5, H=256,
+                    W=320, C=3, n_points=4096, n_u8_points=131072, point_seed=9)
+SLOMO_KEYS = ("pred", "F_0_1", "F_1_0", "F_t_0_collector", "F_t_1_collector")
+WARP_MODES = ("pixel", "torch03")
+SCT_GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_sct_gray.npz")
+SCT_GOLDEN = dict(param_seed=0, input_seed=10, B=1, K=5, F=5, T=5, H=128, W=128, C=1, n_points=4096,
+                  n_u8_points=81920, point_seed=11)
+# The deterministic SCT variants at full width; "forward_train" is Forward's teacher-forced pass.
+SCT_GOLDEN_RUNS = {"forward": "SCTSkipConScaledTForward_gray", "forward_train": "SCTSkipConScaledTForward_gray",
+                   "inward": "SCTSkipConScaledTInward_gray", "bypass": "SCTBypassScaledTForward_gray",
+                   "frame_enc_dec_bn": "SCTFrameEncDecBNSkipConScaledTForward_gray"}
+SLOMO_TRAIN_GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_train_slomo.npz")
+# SloMoEnvironment at TrainConfig's defaults with a VGG16 .npz drawn from vgg_seed.
+SLOMO_TRAIN_GOLDEN = dict(model_key="SloMoFillInModel_color", param_seed=0, input_seed=12, proj_seed=13, vgg_seed=14,
+                          B=1, K=4, T=3, F=4, H=160, W=192, C=3, steps=2)
+SLOMO_TERM_NAMES = ("reconstruction_loss", "perceptual_loss", "warping_loss", "smooth_loss", "G_loss")
+
+
+def sampled_points(size: int, n: int, seed: int) -> np.ndarray:
+    """``n`` distinct flat indices into an array of ``size`` elements (all of them, in order, when n >= size)."""
+    if n >= size:
+        return np.arange(size, dtype=np.int64)
+    return np.sort(np.random.RandomState(seed).choice(size, n, replace=False))
+
+
+def sampled_golden(out: dict, cfg: dict, prefix: str, keys) -> dict:
+    """The arrays a golden keeps of a forward's outputs (numpy, channels-last):
+    ``{prefix}{key}_at_points`` for every key, ``{prefix}pred_u8_at_points``."""
+    arrays = {}
+    for i, key in enumerate(keys):
+        a = np.asarray(out[key], np.float32).reshape(-1)
+        arrays[f"{prefix}{key}_at_points"] = a[sampled_points(a.size, cfg["n_points"], cfg["point_seed"] + i)]
+    pred = np.asarray(out["pred"], np.float32).reshape(-1)
+    arrays[f"{prefix}pred_u8_at_points"] = u8(pred[sampled_points(pred.size, cfg["n_u8_points"], cfg["point_seed"])])
+    return arrays
+
+
+def check_sampled_golden(out: dict, golden, cfg: dict, prefix: str, keys) -> dict:
+    """A forward's outputs against a golden kept by :func:`sampled_golden`:
+    each output's max-abs at its points, pred's uint8 PSNR at its points."""
+    got = sampled_golden({k: out[k].float().cpu().numpy() for k in keys}, cfg, prefix, keys)
+    res = {f"{key}_max_abs": float(np.abs(got[f"{prefix}{key}_at_points"] - golden[f"{prefix}{key}_at_points"]).max())
+           for key in keys}
+    res["pred_u8_psnr_db"] = u8_psnr(got[f"{prefix}pred_u8_at_points"], golden[f"{prefix}pred_u8_at_points"])
+    res["ok"] = bool(max(res[f"{k}_max_abs"] for k in keys) <= 5e-3 and res["pred_u8_psnr_db"] >= 45.0)
+    return res
+
+
+def _meta_ok(golden, cfg: dict) -> bool:
+    return all(str(golden[k]) == str(v) for k, v in cfg.items())
+
+
+def check_slomo_golden(device) -> dict:
+    """SloMoFillInModel_color in f32 in both warp modes against the SloMo golden: {mode: report}."""
+    cfg = SLOMO_GOLDEN
+    golden = np.load(SLOMO_GOLDEN_PATH)
+    state = params_from_jax(random_jax_params(cfg["model_key"], cfg["param_seed"]))
+    p, f = (torch.from_numpy(a).to(device) for a in golden_inputs(cfg))
+    reports = {}
+    for mode in WARP_MODES:
+        spec = copy.deepcopy(model_config(cfg["model_key"]))
+        spec["kwargs"]["warp_mode"] = mode
+        model = create_model(spec)
+        model.load_state_dict(state)
+        model.to(device).eval()
+        with torch.inference_mode():
+            out = model(cfg["T"], p, f)
+        reports[mode] = {"meta_ok": _meta_ok(golden, cfg), **check_sampled_golden(out, golden, cfg, f"{mode}/",
+                                                                                  SLOMO_KEYS)}
+        reports[mode]["ok"] &= reports[mode]["meta_ok"]
+        del model, out
+    return reports
+
+
+def sct_golden_inputs(cfg=SCT_GOLDEN):
+    """The SCT golden's preceding, middle and following frames, [B, K|T|F, H, W, C] in [-1, 1]."""
+    rng = np.random.RandomState(cfg["input_seed"])
+    return tuple(rng.uniform(-1, 1, (cfg["B"], n, cfg["H"], cfg["W"], cfg["C"])).astype(np.float32)
+                 for n in (cfg["K"], cfg["T"], cfg["F"]))
+
+
+def check_sct_golden(device) -> dict:
+    """The deterministic SCT variants (and Forward's teacher-forced pass) in
+    f32 against the SCT golden: {run: report}."""
+    cfg = SCT_GOLDEN
+    golden = np.load(SCT_GOLDEN_PATH)
+    p, m, f = (torch.from_numpy(a).to(device) for a in sct_golden_inputs(cfg))
+    reports = {}
+    for run, key in SCT_GOLDEN_RUNS.items():
+        model = create_model(key)
+        model.load_state_dict(params_from_jax(random_jax_params(key, cfg["param_seed"])))
+        model.to(device).eval()
+        with torch.inference_mode():
+            out = model(cfg["T"], p, f, gt_middle=m) if run == "forward_train" else model(cfg["T"], p, f)
+        reports[run] = {"meta_ok": _meta_ok(golden, cfg), **check_sampled_golden(out, golden, cfg, f"{run}/",
+                                                                                 ("pred",))}
+        reports[run]["ok"] &= reports[run]["meta_ok"]
+        del model, out
+    return reports
+
+
+def slomo_train_golden_setup(vgg_path: str, cfg=SLOMO_TRAIN_GOLDEN):
+    """The SloMo training golden's inputs: (TrainConfig, flax G params,
+    targets [B, K+T+F, H, W, C], r_g), with the VGG16 weights of
+    ``random_vgg16_npz(vgg_path, vgg_seed)``; r_g as ``train_golden_setup``
+    draws it."""
+    random_vgg16_npz(vgg_path, cfg["vgg_seed"])
+    train_cfg = TrainConfig(K=cfg["K"], T=cfg["T"], F=cfg["F"], vgg16_weights=vgg_path)
+    g_params = random_jax_params(cfg["model_key"], cfg["param_seed"])
+    shape = (cfg["B"], cfg["K"] + cfg["T"] + cfg["F"], cfg["H"], cfg["W"], cfg["C"])
+    targets = np.random.RandomState(cfg["input_seed"]).uniform(-1, 1, shape).astype(np.float32)
+    r_g = params_from_jax(_random_like(g_params, np.random.RandomState(cfg["proj_seed"])))
+    return train_cfg, g_params, targets, r_g
+
+
+def check_slomo_train_golden(device, vgg_path: str, cfg=SLOMO_TRAIN_GOLDEN) -> dict:
+    """The port's two f32 SloMoEnvironment steps on ``device`` against the
+    SloMo training golden: loss terms (rel 1e-3) and step-1 gradient
+    projections (global-L2-relative 1e-3)."""
+    golden = np.load(SLOMO_TRAIN_GOLDEN_PATH)
+    train_cfg, g_params, targets, r_g = slomo_train_golden_setup(vgg_path, cfg)
+    env = create_training_environment(create_model(cfg["model_key"]), train_cfg)
+    state = env.init_state((cfg["H"], cfg["W"]), g_params=g_params, device=device)
+    terms = []
+    for step in range(cfg["steps"]):
+        state, m = env.train_step(state, cfg["K"], cfg["T"], cfg["F"], targets)
+        terms.append([float(m[n]) for n in golden["term_names"]])
+        if step == 0:
+            g_proj = grad_projections({n: p.grad for n, p in state.generator.named_parameters()}, r_g)
+    terms_rel = np.abs(np.array(terms) - golden["terms"]) / np.maximum(np.abs(golden["terms"]), 1e-12)
+    report = dict(meta_ok=_meta_ok(golden, cfg), terms_max_rel=float(terms_rel.max()),
+                  worst_term=str(golden["term_names"][terms_rel.max(axis=0).argmax()]),
+                  g_proj_rel=_global_rel(g_proj, golden["g_proj"]), terms=terms)
+    report["ok"] = bool(report["meta_ok"] and report["terms_max_rel"] <= 1e-3 and report["g_proj_rel"] <= 1e-3)
+    return report
 
 
 def emit(phase: str, **kw) -> None:
@@ -1030,9 +1210,9 @@ def _events(root: str, name: str, kind: str) -> list:
         return [e for e in map(json.loads, f) if e["event"] == kind]
 
 
-def _start_snapshot(root: str, name: str) -> None:
-    """The start snapshot (``<root>/start``, updates 0) as ``<root>/ckpt/<name>/model_latest.ckpt``."""
-    shutil.copytree(os.path.join(root, "start", "model_latest.ckpt"),
+def _start_snapshot(root: str, name: str, start: str = "start") -> None:
+    """The start snapshot (``<root>/<start>``, updates 0) as ``<root>/ckpt/<name>/model_latest.ckpt``."""
+    shutil.copytree(os.path.join(root, start, "model_latest.ckpt"),
                     os.path.join(root, "ckpt", name, "model_latest.ckpt"))
 
 
@@ -1260,6 +1440,377 @@ def phase_timing_train_cli(root: str, lists: dict, train_ms: float) -> None:
              val_sweep_s=stats["val_s"][0] if stats["val_s"] else None,
              save_s=next((e["seconds"] for e in _events(root, name, "save")), None),
              max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+
+# The model zoo: Super SloMo at the UCF-101 configuration and the SCT family at
+# KTH's.  Neither runs sepconv: every zoo phase gates 0 launches of each kernel.
+UCF_TEST_ARGS = ("@" + os.path.join(REPO, "exp_args", "default_args", "UCF-101", "test_5.txt"),
+                 "@" + os.path.join(REPO, "exp_args", "extra_args", "UCF-101", "SuperSloMo_val_test.txt"))
+UCF_TRAIN_ARGS = ("@" + os.path.join(REPO, "exp_args", "default_args", "UCF-101", "train.txt"),
+                  "@" + os.path.join(REPO, "exp_args", "extra_args", "UCF-101", "SuperSloMo_train.txt"))
+KTH_TRAIN_ARGS = ("@" + os.path.join(REPO, "exp_args", "default_args", "KTH", "train.txt"),)
+# The predict CLI at UCF-101's test setting: 240x320 clips padded by 16 rows.
+SLOMO_PREDICT = dict(model_key="SloMoFillInModel_color", name="ucf-101_SuperSloMo", param_seed=0, clip_seed=30,
+                     clips=32, frames=13, H=240, W=320, pad=16, K=4, T=5, F=4, batch=16)
+# The train CLI at UCF-101's train setting (160x192 crops of clips at that size).
+SLOMO_TRAIN = dict(model_key="SloMoFillInModel_color", clip_seed=40, vgg_seed=14, H=160, W=192, K=4, T=3, F=4,
+                   alt_T=5, alt_K=6, alt_F=6, train_clips=32, val_clips=8, batch=8, lr=1e-4, lr_decay_count=15,
+                   lr_decay_rate=0.1)
+UCF_FIXED_ARGS = (*(a for k in ("K", "T", "F", "alt_K", "alt_T", "alt_F") for a in (f"--{k}", str(SLOMO_TRAIN[k]))),
+                  "--c_dim", "3", "--image_size", str(SLOMO_TRAIN["H"]), str(SLOMO_TRAIN["W"]),
+                  "--model_key", SLOMO_TRAIN["model_key"])
+# The train CLI at KTH's train setting with SCT Forward; the schedule takes the
+# teacher-forcing rate from 0.99 at step 0 through 0.5 at 10 to 0.007 at 20.
+SCT_TRAIN = dict(model_key="SCTSkipConScaledTForward_gray", param_seed=0, disc_seed=3, batch=8,
+                 tf=("--tf_p_max", "1", "--tf_p_min", "0", "--tf_offset", "10", "--tf_decay", "2"))
+SCT_TERM_NAMES = ("G_Lp", "G_gdl", "G_GAN", "G_loss", "D_fake", "D_real", "teacher_forced")
+# The zoo's train CLI runs: bf16, uint8 normalised on the card, snapshots every
+# 10 iterations, validation every 15.
+ZOO_CLI_FLAGS = ("--train_dtype", "bfloat16", "--device_normalize", "--save_latest_freq", "10", "--validate_freq", "15")
+
+
+def _zoo_launches(path: str) -> dict:
+    """The launches since the last reset, gated at 0 for every kernel."""
+    launches = _launch_counts()
+    _gate_launches(path, launches, {})
+    return launches
+
+
+def _gate_golden(phase: str, run: str, report: dict, keys) -> None:
+    gate(report["meta_ok"], f"{phase} {run}: the golden fixture does not match chip_smoke's configuration")
+    for key in keys:
+        err = report[f"{key}_max_abs"]
+        gate(err <= 5e-3, f"{phase} {run}: {key} max_abs {err} > 5e-3 against the JAX golden")
+    gate(report["pred_u8_psnr_db"] >= 45.0, f"{phase} {run}: uint8 PSNR {report['pred_u8_psnr_db']} dB < 45")
+
+
+def phase_slomo_golden() -> dict:
+    """SloMoFillInModel_color at 256x320, B=2, T=5, f32 (TF32 off), in both
+    warp modes, against the JAX golden."""
+    _reset_launch_counts()
+    reports = check_slomo_golden(torch.device("cuda"))
+    launches = _zoo_launches("slomo_golden")
+    for mode, report in reports.items():
+        emit("slomo_golden", model=SLOMO_GOLDEN["model_key"], warp_mode=mode, dtype="float32", tf32=False,
+             batch=SLOMO_GOLDEN["B"], T=SLOMO_GOLDEN["T"], shape=[SLOMO_GOLDEN["H"], SLOMO_GOLDEN["W"], 3],
+             launches=launches, **report)
+        _gate_golden("slomo_golden", mode, report, SLOMO_KEYS)
+    return launches
+
+
+def phase_slomo_predict(root: str) -> dict:
+    """SloMoFillInModel_color served by the predict CLI at UCF-101's test
+    setting (the argfiles: K=4, T=5, F=4, 240x320 padded to 256x320, B=16) from
+    a port snapshot of ``random_jax_params(..., 0)``, on 32 synthetic clips of
+    13 frames, bf16 ``--device_normalize``: run twice (the first warms up),
+    every PNG written, the metrics finite through ``compute_quant_results``."""
+    c = SLOMO_PREDICT
+    K, T, F = c["K"], c["T"], c["F"]
+    videolist = make_videolist(os.path.join(root, "clips"), c["clips"], c["clip_seed"], n_frames=c["frames"],
+                               hw=c["H"], width=c["W"])
+    env = create_training_environment(create_model(c["model_key"]), TrainConfig(K=K, T=T, F=F, lambda_p=0.0))
+    state = env.init_state((c["H"] + c["pad"], c["W"]), g_params=random_jax_params(c["model_key"], c["param_seed"]),
+                           device="cpu")
+    ckpt.save_snapshot(os.path.join(root, "ckpt", c["name"]), "model_best.ckpt", state,
+                       {"updates": 0, "sum_avg_psnr_err": 0.0, "sum_avg_ssim_err": 0.0})
+    del env, state
+    runs = []
+    for i in range(2):
+        qual = os.path.join(root, f"qual{i}")
+        _reset_launch_counts()
+        stats, _ = run_predict([*UCF_TEST_ARGS, "--test_video_list_path", videolist, "--checkpoints_dir",
+                                os.path.join(root, "ckpt"), "--qual_result_root", qual, "--dtype", "bfloat16",
+                                "--device_normalize", "--device", "cuda"])
+        launches = _zoo_launches("slomo_predict")
+        runs.append((qual, stats))
+    qual, stats = runs[-1]
+    pngs = _pngs(qual)
+    shape = read_png(os.path.join(qual, sorted(pngs)[0], f"pred_middle_{K:04d}.png")).shape
+    gate(len(pngs) == c["clips"] and all(len(v) == K + 2 * T + F for v in pngs.values()),
+         f"slomo_predict wrote {len(pngs)} folders of {sorted({len(v) for v in pngs.values()})} PNGs")
+    gate(shape == (c["H"], c["W"], 3), f"slomo_predict PNGs of shape {shape}: the padding was not cropped off")
+    quant = os.path.join(root, "quant")
+    with contextlib.redirect_stdout(io.StringIO()):
+        quant_cli.main([qual, quant, str(K), str(T)])
+    z = np.load(os.path.join(quant, "results.npz"))
+    finite = bool(np.isfinite(z["psnr"]).all() and np.isfinite(z["ssim"]).all())
+    middles = stats["clips"] * T
+    emit("slomo_predict", model=c["model_key"], args=list(UCF_TEST_ARGS), dtype="bfloat16", batch=c["batch"],
+         device_normalize=True, clips=stats["clips"], batches=stats["batches"], folders=len(pngs), png_shape=shape,
+         loop_s=stats["loop_s"], middle_frames_per_s=middles / stats["loop_s"], forward_s=stats["forward_s"],
+         forward_only_middle_frames_per_s=middles / stats["forward_s"],
+         forward_ms_per_batch=stats["forward_s"] / stats["batches"] * 1e3, write_s=stats["write_s"],
+         warmup_loop_s=runs[0][1]["loop_s"], warmup_forward_s=runs[0][1]["forward_s"],
+         quant_psnr_mean_db=float(z["psnr"].mean()), quant_ssim_mean=float(z["ssim"].mean()),
+         quant_shape=list(z["psnr"].shape), finite_metrics=finite, launches=launches)
+    gate(z["psnr"].shape == (c["clips"], T) and finite, f"slomo_predict metrics of shape {z['psnr'].shape}, "
+                                                         f"finite {finite}")
+    return launches
+
+
+def _cli_ms_per_it(iters: list) -> dict:
+    """Medians of a CLI run's per-iteration times (--print_freq 1), its first
+    iteration left out: all of them, those at a (K, T, F) this process ran
+    before, and those at a (K, T, F) it had not (whose shapes are new to
+    cuDNN and the allocator)."""
+    seen, ms = set(), {"repeat": [], "new": []}
+    for e in iters:
+        ktf = (e["K"], e["T"], e["F"])
+        if e["iter"] > 1:
+            ms["repeat" if ktf in seen else "new"].append(e["ms_per_it"])
+        seen.add(ktf)
+    med = {k: float(np.median(v)) if v else None for k, v in ms.items()}
+    return {"ms_per_it": float(np.median([e["ms_per_it"] for e in iters[1:]])), "ms_per_it_repeat_KTF": med["repeat"],
+            "ms_per_it_new_KTF": med["new"], "iters_new_KTF": len(ms["new"])}
+
+
+def _zoo_cli_run(root: str, name: str, args_of, iters_total: int, resumes_want: list, terms: tuple) -> tuple:
+    """A train CLI run of 20 iterations then a resume to 30: its launches,
+    events and peak memory, gated: every iteration logged with finite terms,
+    the resumes, 6 ``val`` events (at 15 and 30), the snapshots."""
+    _reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for n in (20, iters_total):
+        run_train(args_of(name, "--max_iter", str(n)))
+    peak = torch.cuda.max_memory_allocated()
+    launches = _zoo_launches(name)
+    iters = _events(root, name, "iter")
+    vals = _events(root, name, "val")
+    resumes = [e["iter"] for e in _events(root, name, "resume")]
+    snapshots = sorted(os.listdir(os.path.join(root, "ckpt", name)))
+    finite = all(math.isfinite(e[k]) for e in iters for k in terms)
+    gate([e["iter"] for e in iters] == list(range(1, iters_total + 1)),
+         f"{name}: logged iterations {[e['iter'] for e in iters]}")
+    gate(finite, f"{name}: non-finite loss terms")
+    gate(resumes == resumes_want, f"{name}: resume events at {resumes}, want {resumes_want}")
+    gate(len(vals) == 6, f"{name}: {len(vals)} val events, want 6")
+    gate({"model_latest.ckpt", "model_00000010.ckpt", "model_00000020.ckpt", "model_00000030.ckpt",
+          "model_best.ckpt"} <= set(snapshots), f"{name} snapshots {snapshots}")
+    return launches, iters, vals, resumes, snapshots, peak
+
+
+def _f32_cli_vs_direct(root: str, name: str, args: list, env, start: str, ds, terms: tuple) -> dict:
+    """The train CLI in f32 (TF32 off inside) at B=2 for 2 iterations, the
+    data in order, against ``env.train_step`` on the same batches from the
+    same start snapshot (the CLI's init batch is clips 0-1)."""
+    _start_snapshot(root, name, start)
+    _reset_launch_counts()
+    _, stdout = run_train(args)
+    launches = _zoo_launches(name)
+    cli = _events(root, name, "iter")
+    direct = []
+    with uncounted():
+        state, _ = ckpt.load_snapshot(os.path.join(root, start), "model_latest.ckpt",
+                                      env.init_state(ds.image_size, device="cuda"))
+        for first in (2, 4):
+            batch = np.stack([ds[i]["targets"] for i in (first, first + 1)])
+            state, m = env.train_step(state, env.cfg.K, env.cfg.T, env.cfg.F, batch)
+            direct.append({k: float(v) for k, v in m.items()})
+    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for g, w in zip(cli, direct) for k in terms)
+    report = dict(dtype="float32", batch=2, iters=len(cli), terms_max_rel_vs_train_step=rel,
+                  tf32_off="TF32: matmul False, cudnn False" in stdout, launches=launches)
+    gate(len(cli) == 2 and rel <= 1e-3, f"{name}: train CLI f32 terms off train_step by rel {rel} > 1e-3")
+    gate(report["tf32_off"], f"{name}: the f32 train CLI did not run with TF32 off")
+    return report
+
+
+def phase_slomo_train_cli(root: str, vgg: str) -> dict:
+    """SloMoFillInModel_color through the train CLI at UCF-101's train setting
+    (the argfiles: 160x192, K=4, T=3, F=4, --sample_KTF; their videolists
+    replaced by synthetic clips at 160x192: 32 training clips of 11 frames, 8
+    for each validation set at 11, 13 and 15 frames) with the seeded VGG16
+    .npz, bf16 --device_normalize, B=8, from a fresh init: 20 iterations
+    (snapshots every 10, validation every 15), then a resume to 30; the rate
+    of every update is the schedule's (--lr_decay_count 15).  Then the CLI in
+    f32 at B=2 against ``SloMoEnvironment.train_step``."""
+    c = SLOMO_TRAIN
+    K, T, F = c["K"], c["T"], c["F"]
+
+    def clips(name, n, frames, seed):
+        return make_videolist(os.path.join(root, name), n, seed, n_frames=frames, hw=c["H"], width=c["W"])
+
+    val = {"": clips("val", c["val_clips"], K + T + F, c["clip_seed"] + 1),
+           "_alt_T": clips("val_alt_T", c["val_clips"], K + c["alt_T"] + F, c["clip_seed"] + 2),
+           "_alt_K_F": clips("val_alt_K_F", c["val_clips"], c["alt_K"] + T + c["alt_F"], c["clip_seed"] + 3)}
+    lists = {"--train_video_list_path": clips("train", c["train_clips"], K + T + F, c["clip_seed"]),
+             **{f"--val_video_list{k}_path": v for k, v in val.items()},
+             **{f"--vis_video_list{k}_path": v for k, v in val.items()}}
+
+    def args_of(name, *extra, base=UCF_TRAIN_ARGS):
+        return [*base, *(a for kv in lists.items() for a in kv), "--name", name, "--batch_size", str(c["batch"]),
+                "--checkpoints_dir", os.path.join(root, "ckpt"), "--tensorboard_dir", os.path.join(root, "tb"),
+                "--log_json", os.path.join(root, f"{name}.jsonl"), "--vgg16_weights", vgg,
+                "--lr_decay_count", str(c["lr_decay_count"]), "--print_freq", "1", *extra]
+
+    launches, iters, vals, resumes, snapshots, peak = _zoo_cli_run(
+        root, "slomo", lambda name, *extra: args_of(name, *ZOO_CLI_FLAGS, *extra), 30, [20], SLOMO_TERM_NAMES)
+    lr_want = [c["lr"] * c["lr_decay_rate"] ** ((e["iter"] - 1) // c["lr_decay_count"]) for e in iters]
+    lr_ok = all(abs(e["lr"] - w) <= 1e-12 * w for e, w in zip(iters, lr_want))
+    ktf = [(e["K"], e["T"], e["F"]) for e in iters]
+    emit("slomo_train_cli", model=c["model_key"], args=list(UCF_TRAIN_ARGS), dtype="bfloat16", batch=c["batch"],
+         iters=len(iters), resumes=resumes, val_events=[(e["iter"], e["tag"], e["psnr"], e["ssim"]) for e in vals],
+         snapshots=snapshots, lr_after_resume=[e["lr"] for e in iters[20:22]], lr_matches_schedule=lr_ok,
+         **_cli_ms_per_it(iters), mean_T=float(np.mean([k[1] for k in ktf])), distinct_KTF=len(set(ktf)),
+         max_memory_allocated_bytes=peak, last_terms={k: iters[-1][k] for k in SLOMO_TERM_NAMES}, launches=launches)
+    gate(lr_ok, f"slomo_train_cli rates {[e['lr'] for e in iters]} are not the schedule's {lr_want}")
+    gate(len(set(ktf)) > 1, "slomo_train_cli: --sample_KTF sampled one (K, T, F)")
+    shutil.rmtree(os.path.join(root, "ckpt", "slomo"))
+
+    cfg = TrainConfig(K=K, T=T, F=F, vgg16_weights=vgg, lr_decay_count=c["lr_decay_count"])
+    env = create_training_environment(create_model(c["model_key"]), cfg)
+    ckpt.save_snapshot(os.path.join(root, "start"), "model_latest.ckpt", env.init_state((c["H"], c["W"]),
+                                                                                        device="cpu"),
+                       {"updates": 0, "sum_avg_psnr_err": 0.0, "sum_avg_ssim_err": 0.0})
+    ds = ContiguousVideoClipDataset(3, lists["--train_video_list_path"], K + T + F, False, False, (c["H"], c["W"]),
+                                    True)
+    report = _f32_cli_vs_direct(root, "slomo_f32", args_of(
+        "slomo_f32", "--batch_size", "2", "--train_dtype", "float32", "--serial_batches", "--no_backwards",
+        "--no_flip", "--num_threads", "0", "--max_iter", "2", "--save_latest_freq", "100", "--validate_freq", "100",
+        base=UCF_FIXED_ARGS), env, "start", ds, SLOMO_TERM_NAMES)
+    emit("slomo_train_cli_f32", **report)
+    return launches
+
+
+def phase_slomo_train_golden(vgg_dir: str) -> dict:
+    """Two f32 SloMoEnvironment steps at UCF-101's training width (B=1,
+    160x192, T=3, the perceptual term on) against the JAX training golden."""
+    _reset_launch_counts()
+    report = check_slomo_train_golden(torch.device("cuda"), os.path.join(vgg_dir, "vgg16_golden.npz"))
+    launches = _zoo_launches("slomo_train_golden")
+    emit("slomo_train_golden", dtype="float32", tf32=False, batch=SLOMO_TRAIN_GOLDEN["B"], launches=launches,
+         **report)
+    gate(report["meta_ok"], "SloMo training golden fixture does not match SLOMO_TRAIN_GOLDEN")
+    gate(report["terms_max_rel"] <= 1e-3, f"SloMo loss term {report['worst_term']} off the golden by rel "
+                                          f"{report['terms_max_rel']} > 1e-3")
+    gate(report["g_proj_rel"] <= 1e-3, f"SloMo gradient projections off the golden by {report['g_proj_rel']} > 1e-3")
+    return launches
+
+
+def phase_sct_golden(gen) -> dict:
+    """The deterministic SCT variants (and Forward's teacher-forced pass) at
+    KTH's width, f32, against the JAX golden; then RandomB in bf16 at B=8 from
+    a seeded generator: finite, and the same seed gives the same frames."""
+    _reset_launch_counts()
+    reports = check_sct_golden(torch.device("cuda"))
+    for run, report in reports.items():
+        emit("sct_golden", run=run, model=SCT_GOLDEN_RUNS[run], dtype="float32", tf32=False, batch=SCT_GOLDEN["B"],
+             **report)
+        _gate_golden("sct_golden", run, report, ("pred",))
+    key = "SCTSkipConScaledTRandomB_gray"
+    ip = VideoInpainter(key, params_from_jax(random_jax_params(key, 0)), device="cuda", dtype=torch.bfloat16)
+    p, f = (torch.rand(8, 5, 128, 128, 1, device="cuda", generator=gen).to(torch.bfloat16) * 2 - 1 for _ in range(2))
+    with torch.inference_mode():
+        a, b, other = (ip.model(5, p, f, generator=torch.Generator().manual_seed(s))["pred"] for s in (1, 1, 2))
+    finite, same = bool(torch.isfinite(a).all()), bool(torch.equal(a, b))
+    launches = _zoo_launches("sct_golden")
+    emit("sct_random_order", model=key, dtype="bfloat16", batch=8, finite=finite, same_seed_bit_identical=same,
+         other_seed_differs=not torch.equal(a, other), launches=launches)
+    gate(finite and same, f"{key} bf16: finite {finite}, the same seed bit-identical {same}")
+    return launches
+
+
+def phase_sct_train_cli(root: str, lists: dict) -> dict:
+    """SCT Forward through the train CLI at KTH's train setting (the KTH
+    train argfile, its videolists replaced as ``train_cli``'s) with a teacher
+    forcing schedule that falls from 0.99 to 0.007 over the run, bf16
+    --device_normalize B=8, from a port snapshot at updates 0: 20 iterations,
+    then a resume to 30, both branches in the events.  Then the CLI in f32 at
+    B=2 against ``SCTEnvironment.train_step`` on the same batches."""
+    c = SCT_TRAIN
+    K, T, F = TRAIN_CLI["K"], TRAIN_CLI["T"], TRAIN_CLI["F"]
+    cfg = TrainConfig(K=K, T=T, F=F, tf_p_max=1.0, tf_p_min=0.0, tf_offset=10.0, tf_decay=2.0)
+    env = create_training_environment(create_model(c["model_key"]), cfg)
+    hw = TRAIN_CLI["hw"]
+    state = env.init_state((hw, hw), g_params=random_jax_params(c["model_key"], c["param_seed"]),
+                           d_variables=random_jax_disc_variables(cfg, hw, hw, 1, c["disc_seed"]), device="cpu")
+    ckpt.save_snapshot(os.path.join(root, "start_sct"), "model_latest.ckpt", state,
+                       {"updates": 0, "sum_avg_psnr_err": 0.0, "sum_avg_ssim_err": 0.0})
+    del state
+    _start_snapshot(root, "sct", "start_sct")
+
+    def args_of(name, *extra):
+        return _train_cli_args(root, name, lists, "--model_key", c["model_key"], *c["tf"], "--print_freq", "1",
+                               *ZOO_CLI_FLAGS, *extra, base=KTH_TRAIN_ARGS)
+
+    launches, iters, vals, resumes, snapshots, peak = _zoo_cli_run(root, "sct", args_of, 30, [0, 20],
+                                                                   SCT_TERM_NAMES)
+    forced = [int(e["teacher_forced"]) for e in iters]
+    emit("sct_train_cli", model=c["model_key"], args=list(KTH_TRAIN_ARGS), tf=list(c["tf"]), dtype="bfloat16",
+         batch=c["batch"], iters=len(iters), resumes=resumes, teacher_forced=forced,
+         val_events=[(e["iter"], e["tag"], e["psnr"], e["ssim"]) for e in vals], snapshots=snapshots,
+         **_cli_ms_per_it(iters), max_memory_allocated_bytes=peak,
+         last_terms={k: iters[-1][k] for k in SCT_TERM_NAMES}, launches=launches)
+    gate(set(forced) == {0, 1}, f"sct_train_cli: teacher forcing took only {set(forced)}")
+    shutil.rmtree(os.path.join(root, "ckpt", "sct"))
+
+    ds = ContiguousVideoClipDataset(1, lists["--train_video_list_path"], K + T + F, False, False, (hw, hw), True)
+    report = _f32_cli_vs_direct(root, "sct_f32", _train_cli_args(
+        root, "sct_f32", lists, "--batch_size", "2", "--train_dtype", "float32", "--serial_batches", "--no_backwards",
+        "--no_flip", "--num_threads", "0", "--max_iter", "2", "--print_freq", "1", "--save_latest_freq", "100",
+        "--validate_freq", "100", "--model_key", c["model_key"], *c["tf"], base=KTH_FIXED_ARGS),
+        env, "start_sct", ds, SCT_TERM_NAMES)
+    emit("sct_train_cli_f32", **report)
+    return launches
+
+
+def phase_timing_zoo(gen, vgg: str) -> None:
+    """CUDA-event times after a warm-up: ms per batch serving SloMo_color at
+    256x320 (T=5; bf16 B=16, f32 B=2) and SCT Forward and RandomB at KTH
+    (128x128, K=T=F=5, bf16 B=8); ms per training step of SloMo_color (B=8,
+    160x192, K=4, T=3, F=4, the perceptual term on) and SCT Forward (B=8,
+    KTH, free running) in bf16; peak device memory of each."""
+    with uncounted():
+        for key, dtype, B, (K, T, F, H, W, C) in (
+                ("SloMoFillInModel_color", torch.bfloat16, 16, (4, 5, 4, 256, 320, 3)),
+                ("SloMoFillInModel_color", torch.float32, 2, (4, 5, 4, 256, 320, 3)),
+                ("SCTSkipConScaledTForward_gray", torch.bfloat16, 8, (5, 5, 5, 128, 128, 1)),
+                ("SCTSkipConScaledTRandomB_gray", torch.bfloat16, 8, (5, 5, 5, 128, 128, 1))):
+            ip = VideoInpainter(key, params_from_jax(random_jax_params(key, 0)), device="cuda", dtype=dtype)
+            p = torch.rand(B, K, H, W, C, device="cuda", generator=gen).to(dtype) * 2 - 1
+            f = torch.rand(B, F, H, W, C, device="cuda", generator=gen).to(dtype) * 2 - 1
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: ip.forward(T, p, f), iters=5)
+            emit("timing_zoo", kind="serve", model=key, dtype=str(dtype), batch=B, K=K, T=T, F=F, shape=[H, W, C],
+                 tf32=False, ms_per_batch=ms, middle_frames_per_s=B * T / (ms / 1e3),
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+            del ip, p, f
+            torch.cuda.empty_cache()
+        for key, B, (K, T, F, H, W, C), cfg in (
+                ("SloMoFillInModel_color", 8, (4, 3, 4, 160, 192, 3), dict(vgg16_weights=vgg)),
+                ("SCTSkipConScaledTForward_gray", 8, (5, 5, 5, 128, 128, 1), {})):
+            env = create_training_environment(create_model(key), TrainConfig(K=K, T=T, F=F, train_dtype="bfloat16",
+                                                                              **cfg))
+            state = env.init_state((H, W), device="cuda")
+            targets = torch.rand(B, K + T + F, H, W, C, device="cuda", generator=gen) * 2 - 1
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: env.train_step(state, K, T, F, targets), iters=5)
+            emit("timing_zoo", kind="train_step", model=key, dtype="bfloat16", batch=B, K=K, T=T, F=F,
+                 shape=[H, W, C], ms_per_step=ms, steps_per_s=1e3 / ms,
+                 max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+            del env, state, targets
+            torch.cuda.empty_cache()
+
+
+def run_zoo(root: str, gen) -> dict:
+    """Every zoo phase in ``root``; returns each path's launches (all 0)."""
+    os.makedirs(root, exist_ok=True)
+    vgg = random_vgg16_npz(os.path.join(root, "vgg16.npz"), SLOMO_TRAIN["vgg_seed"])
+    paths = {"slomo_golden": phase_slomo_golden()}
+    torch.cuda.empty_cache()
+    paths["slomo_predict"] = phase_slomo_predict(os.path.join(root, "predict"))
+    torch.cuda.empty_cache()
+    paths["slomo_train_cli"] = phase_slomo_train_cli(os.path.join(root, "slomo_train"), vgg)
+    torch.cuda.empty_cache()
+    paths["slomo_train_golden"] = phase_slomo_train_golden(root)
+    torch.cuda.empty_cache()
+    paths["sct_golden"] = phase_sct_golden(gen)
+    torch.cuda.empty_cache()
+    sct_root = os.path.join(root, "sct_train")
+    paths["sct_train_cli"] = phase_sct_train_cli(sct_root, _train_cli_lists(sct_root))
+    torch.cuda.empty_cache()
+    phase_timing_zoo(gen, vgg)
+    return paths
 
 
 # The forwards' main-path shapes (B*T, H, W, C): TAI_gray serving at B=64 and
@@ -1565,6 +2116,15 @@ def main(argv) -> int:
         phase_timing_train_cli(train_cli_root, lists, train_ms)
     finally:
         shutil.rmtree(train_cli_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    zoo_root = os.path.join(str(_kernels.BUILD_DIR), "zoo_smoke")
+    shutil.rmtree(zoo_root, ignore_errors=True)
+    t_zoo = time.perf_counter()
+    try:
+        paths.update(run_zoo(zoo_root, gen))
+    finally:
+        shutil.rmtree(zoo_root, ignore_errors=True)
+    emit("zoo", wall_s=time.perf_counter() - t_zoo)
     torch.cuda.empty_cache()
     phase_timing(state, peak, main_err, adj_err, paths, gen, baseline)
 

@@ -14,9 +14,14 @@ per-parameter ``step``/``exp_avg``/``exp_avg_sq``, the moments transposed as
 their weights), ``step``, and the counters ``updates``, ``sum_avg_psnr_err``
 and ``sum_avg_ssim_err``.  ``--model_key`` names the generator (a registry
 key or a JSON model key), whose parameter order the torch Adam state follows.
+A Super SloMo state has no discriminator (vfi_tpu's ``d_params``, ``d_sn``
+and ``d_opt`` are None; the port's snapshot has neither ``discriminator`` nor
+``d_opt``), and its optax state adds the learning-rate schedule's count,
+which is Adam's.
 
 vfi_tpu's ``TrainState.rng`` has no counterpart in the port: ``to_torch``
-drops it, and ``to_jax`` writes what ``init_state(PRNGKey(--seed))`` would.
+drops it, and ``to_jax`` writes what ``init_state(PRNGKey(--seed))`` would
+(and drops the port's ``rng``, an SCT state's torch generator).
 optax stores no Adam hyper-parameters, and the port's ``load_snapshot``
 restores none: the ``param_groups`` written by ``to_torch`` hold
 ``TrainConfig``'s defaults only to complete torch's ``state_dict`` layout,
@@ -36,6 +41,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from vfi_tpu_torch.models.registry import create_model  # noqa: E402
+from vfi_tpu_torch.models.slomo import SloMoFillInModel  # noqa: E402
 from vfi_tpu_torch.nn.discriminator import SNDiscriminator  # noqa: E402
 from vfi_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
 from vfi_tpu_torch.utils.config import TrainConfig  # noqa: E402
@@ -47,13 +53,14 @@ COUNTERS = ("updates", "sum_avg_psnr_err", "sum_avg_ssim_err")
 
 def _layout(model_key):
     """(generator state_dict keys, generator parameter names, discriminator
-    state_dict keys, discriminator parameter names), each in the port modules'
+    state_dict keys, discriminator parameter names, whether the generator
+    trains on vfi_tpu's learning-rate schedule), each in the port modules'
     order; the modules are built on the meta device (the names do not depend
     on the discriminator's sizes)."""
     with torch.device("meta"):
         g, d = create_model(model_key), SNDiscriminator(3, 1, (32, 32))
     return (list(g.state_dict()), [n for n, _ in g.named_parameters()],
-            list(d.state_dict()), [n for n, _ in d.named_parameters()])
+            list(d.state_dict()), [n for n, _ in d.named_parameters()], isinstance(g, SloMoFillInModel))
 
 
 def _adam_groups(n_params: int):
@@ -67,19 +74,21 @@ def _adam_groups(n_params: int):
 def to_torch_payload(state: dict, counters: dict, model_key) -> dict:
     """A vfi_tpu snapshot's restored ``state`` and ``counters`` (nested dicts
     of numpy arrays) -> the port's snapshot payload."""
-    g_keys, g_names, d_keys, d_names = _layout(model_key)
+    g_keys, g_names, d_keys, d_names, _ = _layout(model_key)
     g_sd = params_from_jax(state["g_params"])
-    d_sd = disc_variables_from_jax({"params": state["d_params"], "sn": state["d_sn"]})
-    return {
+    payload = {
         "generator": {k: g_sd[k] for k in g_keys},
-        "discriminator": {k: d_sd[k] for k in d_keys},
         "g_opt": {"state": adam_state_from_jax(state["g_opt"]["0"], g_names),
                   "param_groups": _adam_groups(len(g_names))},
-        "d_opt": {"state": adam_state_from_jax(state["d_opt"]["0"], d_names),
-                  "param_groups": _adam_groups(len(d_names))},
         "step": int(np.asarray(state["step"])),
         "counters": {k: np.asarray(counters[k]).item() for k in COUNTERS},
     }
+    if state.get("d_params") is not None:
+        d_sd = disc_variables_from_jax({"params": state["d_params"], "sn": state["d_sn"]})
+        payload["discriminator"] = {k: d_sd[k] for k in d_keys}
+        payload["d_opt"] = {"state": adam_state_from_jax(state["d_opt"]["0"], d_names),
+                            "param_groups": _adam_groups(len(d_names))}
+    return payload
 
 
 def to_jax_state(payload: dict, model_key, seed: int = 0):
@@ -90,22 +99,25 @@ def to_jax_state(payload: dict, model_key, seed: int = 0):
 
     from vfi_tpu.train.environments import TrainState
 
-    _, g_names, _, d_names = _layout(model_key)
+    _, g_names, _, d_names, schedule = _layout(model_key)
 
-    def adam(opt, names, sd):
+    def adam(opt, names, sd, schedule=False):
         a = adam_state_to_jax(opt["state"], names, sd)
         tree = jax.tree.map(jnp.asarray, a)
-        return (optax.ScaleByAdamState(count=tree["count"], mu=tree["mu"], nu=tree["nu"]), optax.EmptyState())
+        scale = optax.ScaleByScheduleState(count=tree["count"]) if schedule else optax.EmptyState()
+        return (optax.ScaleByAdamState(count=tree["count"], mu=tree["mu"], nu=tree["nu"]), scale)
 
-    d_vars = disc_variables_to_jax(payload["discriminator"])
+    disc = {}
+    if "discriminator" in payload:
+        d_vars = disc_variables_to_jax(payload["discriminator"])
+        disc = dict(d_params=jax.tree.map(jnp.asarray, d_vars["params"]), d_sn=jax.tree.map(jnp.asarray, d_vars["sn"]),
+                    d_opt=adam(payload["d_opt"], d_names, payload["discriminator"]))
     state = TrainState(
         step=jnp.asarray(payload["step"], jnp.int32),
         g_params=jax.tree.map(jnp.asarray, params_to_jax(payload["generator"])),
-        g_opt=adam(payload["g_opt"], g_names, payload["generator"]),
-        d_params=jax.tree.map(jnp.asarray, d_vars["params"]),
-        d_sn=jax.tree.map(jnp.asarray, d_vars["sn"]),
-        d_opt=adam(payload["d_opt"], d_names, payload["discriminator"]),
+        g_opt=adam(payload["g_opt"], g_names, payload["generator"], schedule),
         rng=jax.random.split(jax.random.PRNGKey(seed), 3)[2],  # init_state's s_rng
+        **disc,
     )
     return state, dict(payload["counters"])
 

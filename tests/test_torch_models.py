@@ -1,5 +1,8 @@
 """vfi_tpu_torch.models against vfi_tpu.models on the CPU: the bi-TAI and
-bi-TWI forwards at toy widths, the registry, and the weight map."""
+bi-TWI forwards at toy widths, the registry (all 29 of vfi_tpu's keys but
+OFFillInModel), and the weight map."""
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -64,14 +67,20 @@ def test_diff_frames_and_fold_match_jax():
 @pytest.mark.parametrize("key", ["TAI_gray", "TAI_color", "TimeWeightedInterpolationFillInModel_gray",
                                  "TimeWeightedInterpolationFillInModel_color", "MCNet_gray", "MCNet_color",
                                  "BidirectionalSimpleAverageFillInModel_color",
-                                 "BidirectionalTimeWeightedAverageFillInModel_gray", "TimeWeightedPFFillInModel"])
+                                 "BidirectionalTimeWeightedAverageFillInModel_gray", "TimeWeightedPFFillInModel",
+                                 "SloMoFillInModel_gray", "SloMoFillInModel_color", "SCTSkipConScaledTForward_gray",
+                                 "SCTSkipConScaledTInward_color", "SCTSkipConScaledTRandom_gray",
+                                 "SCTSkipConScaledTRandomB_color", "SCTSkipConScaledTRandomC_gray",
+                                 "SCTSkipConScaledTRandomD_color", "SCTBypassScaledTForward_gray",
+                                 "SCTFrameEncDecBNSkipConScaledTForward_color"])
 def test_random_jax_params_match_the_flax_tree(key):
     """Every flax parameter of the JAX model, with its shape, and nothing else;
     and every port parameter is filled from it."""
     jmodel = jregistry.create_model(key)
     c = getattr(jmodel, "c_dim", 1)
     spec = jax.ShapeDtypeStruct((1, 2, 64, 64, c), np.float32)
-    template = jax.eval_shape(lambda a, b: jmodel.init(jax.random.PRNGKey(0), 1, a, b), spec, spec).get("params", {})
+    rngs = {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)}  # "sample": SCT's random orders
+    template = jax.eval_shape(lambda a, b: jmodel.init(rngs, 2, a, b), spec, spec).get("params", {})
     want = {tuple(k.key for k in path): leaf.shape for path, leaf in jax.tree_util.tree_flatten_with_path(template)[0]}
 
     jp = random_jax_params(key, seed=0)
@@ -106,20 +115,29 @@ def test_params_from_jax_conv_layout():
 
 
 def test_registry_keys():
-    """The ported keys are vfi_tpu's keys but OFFillInModel, SloMo and SCT,
-    with vfi_tpu's classes and widths; an unported key raises, naming the
-    ported keys and the ROADMAP items that port the rest."""
-    unported = [k for k in jregistry.model_keys() if k == "OFFillInModel" or k.startswith(("SloMo", "SCT"))]
-    assert model_keys() == sorted(set(jregistry.model_keys()) - set(unported)) and len(model_keys()) == 11
+    """The ported keys are vfi_tpu's keys but OFFillInModel, with vfi_tpu's
+    classes and widths; OFFillInModel raises, naming the ported keys and the
+    ROADMAP item that ports it; the legacy SCT classes build from JSON keys."""
+    assert model_keys() == sorted(set(jregistry.model_keys()) - {"OFFillInModel"}) and len(model_keys()) == 29
     for key in model_keys():
         with torch.device("meta"):
             port = create_model(key)
         jm = jregistry.create_model(key)
         assert type(port).__name__ == type(jm).__name__
-        if hasattr(jm, "gf_dim"):
-            assert (port.c_dim, port.gf_dim) == (jm.c_dim, jm.gf_dim)
+        assert getattr(port, "c_dim", 1) == getattr(jm, "c_dim", 1)
+        for field in ("gf_dim", "base_dim", "warp_mode", "num_blocks", "num_heads", "d_v", "d_ff", "frame_norm",
+                      "enc_return_all", "dec_enc_attend"):
+            if hasattr(jm, field):
+                assert getattr(port, field) == getattr(jm, field), (key, field)
         if hasattr(jm, "ks"):
             assert (port.kernelnet.ks, port.kernelnet.num_block) == (jm.ks, jm.num_block)
-    for key in unported:
-        with pytest.raises(KeyError, match="TAI_gray.*item 7.*item 11"):
-            create_model(key)
+    with pytest.raises(KeyError, match="TAI_gray.*item 7"):
+        create_model("OFFillInModel")
+    for cls in ("SCTSkipConFillInModel", "SCTSuperSkipConFillInModel"):
+        key = json.dumps({"class": cls, "args": [], "kwargs": {"c_dim": 1, "num_blocks": 2, "num_heads": 3,
+                                                              "d_v": 256, "d_ff": 2048}})
+        with torch.device("meta"):
+            port = create_model(key)
+        jm = jregistry.create_model(key)
+        assert type(port).__name__ == type(jm).__name__ == cls
+        assert (port.enc_return_all, port.dec_enc_attend) == (jm.enc_return_all, jm.dec_enc_attend)

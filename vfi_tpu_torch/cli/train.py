@@ -26,6 +26,8 @@ vfi_tpu's.  Where it differs:
     the PSNR-curve images need matplotlib too, and are left out without it.
   * ms/it leaves out the time of the ``train_vis`` grid's forward, as vfi_tpu
     leaves out snapshots and validation: it stays a step-time series.
+  * Each ``iter`` event also holds ``lr``, the learning rate of that
+    iteration's generator update (Super SloMo's decays with the step).
 
 ``main`` returns the run's counts and host seconds: waiting for the
 prefetcher, copying and normalising batches, dispatching the steps (which
@@ -247,7 +249,8 @@ def _train(opt) -> dict:
                 t_start = time.time()
                 msg = " ".join(f"{k}: {v:.4f}" for k, v in sorted(errors.items()))
                 print(f"iter {total_updates} ({dt * 1000:.0f} ms/it) {msg}", flush=True)
-                log_json(event="iter", iter=total_updates, ms_per_it=dt * 1000, K=K, T=T, F=F, **errors)
+                log_json(event="iter", iter=total_updates, ms_per_it=dt * 1000, K=K, T=T, F=F,
+                         lr=state.g_opt.param_groups[0]["lr"], **errors)
                 if writer:
                     t_vis = time.time()
                     for k, v in errors.items():

@@ -80,15 +80,18 @@ FAMILIES = {"gratings": grating_clip, "textures": texture_clip}
 
 
 def make_videolist(root: str, n_clips: int, seed: int, n_frames: int = 16,
-                   hw: int = 128, family: str = "gratings") -> str:
+                   hw: int = 128, family: str = "gratings", width: int | None = None) -> str:
     """Write ``n_clips`` .npy clips + a reference-format videolist; returns
-    the videolist path."""
+    the videolist path.  Frames are ``hw`` x ``hw``, or ``hw`` x ``width``
+    (the top-left crop of a square clip as wide as the larger side)."""
     clip_fn = FAMILIES[family]
     rng = np.random.RandomState(seed)
     os.makedirs(root, exist_ok=True)
     lines = []
     for i in range(n_clips):
-        vid = clip_fn(rng, n_frames, hw)
+        vid = clip_fn(rng, n_frames, hw if width is None else max(hw, width))
+        if width is not None:
+            vid = np.ascontiguousarray(vid[:, :hw, :width])
         path = os.path.join(root, f"clip{i}.npy")
         np.save(path, vid)
         lines.append(f"{path} 1-{n_frames}")

@@ -1,7 +1,7 @@
-"""Model registry (counterpart of ``vfi_tpu/models/registry.py``) for the
-classes ported so far: TAI, TWI, bi-TWA, bi-SA, MC-Net and TW_P_F.  vfi_tpu's
-other keys (``OFFillInModel``, ROADMAP.md queue 1 item 7; SloMo and SCT,
-item 11) raise ``KeyError``.
+"""Model registry (counterpart of ``vfi_tpu/models/registry.py``): every
+vfi_tpu key but ``OFFillInModel`` (ROADMAP.md queue 1 item 7), which raises
+``KeyError``.  The two legacy SCT classes have no key and are reached by a
+JSON spec, as in vfi_tpu.
 
 A model is named by a registry key, by a JSON file, or by a JSON literal,
 as in vfi_tpu: ``{"class": name, "args": [...], "kwargs": {...}}`` (the
@@ -17,12 +17,16 @@ from typing import Any, Dict, Union
 
 from .fill_in import (BidirectionalSimpleAverageFillInModel, BidirectionalTimeWeightedAverageFillInModel,
                       MCNetFillInModel, TAIFillInModel, TimeWeightedPFFillInModel, TWIFillInModel)
+from .legacy_sct import SCTSkipConFillInModel, SCTSuperSkipConFillInModel
+from .sct import SCT_CLASSES
+from .slomo import SloMoFillInModel
 
 _CLASSES = {cls.__name__: cls for cls in (
     TAIFillInModel, TWIFillInModel, BidirectionalSimpleAverageFillInModel,
-    BidirectionalTimeWeightedAverageFillInModel, MCNetFillInModel, TimeWeightedPFFillInModel)}
+    BidirectionalTimeWeightedAverageFillInModel, MCNetFillInModel, TimeWeightedPFFillInModel, SloMoFillInModel,
+    *SCT_CLASSES.values(), SCTSkipConFillInModel, SCTSuperSkipConFillInModel)}
 
-_UNPORTED = ("OFFillInModel is ROADMAP.md queue 1 item 7; the SloMo and SCT models are item 11")
+_UNPORTED = "OFFillInModel is not ported yet: ROADMAP.md queue 1 item 7"
 
 
 def _kth(cls: str, c_dim: int, num_block: int) -> Dict[str, Any]:
@@ -45,7 +49,14 @@ _REGISTRY: Dict[str, Dict[str, Any]] = {
     "BidirectionalTimeWeightedAverageFillInModel_gray": _mcnet("BidirectionalTimeWeightedAverageFillInModel", 1),
     "BidirectionalTimeWeightedAverageFillInModel_color": _mcnet("BidirectionalTimeWeightedAverageFillInModel", 3),
     "TimeWeightedPFFillInModel": {"class": "TimeWeightedPFFillInModel", "kwargs": {}},
+    "SloMoFillInModel_gray": {"class": "SloMoFillInModel", "kwargs": dict(base_dim=32, c_dim=1)},
+    "SloMoFillInModel_color": {"class": "SloMoFillInModel", "kwargs": dict(base_dim=32, c_dim=3)},
 }
+# The SCT family: every variant in _gray (c_dim=1) and _color (c_dim=3).
+for _name, _cls in SCT_CLASSES.items():
+    for _c_dim, _suffix in ((1, "_gray"), (3, "_color")):
+        _REGISTRY[_name + _suffix] = {"class": _cls.__name__, "kwargs": dict(
+            c_dim=_c_dim, num_blocks=2, num_heads=3, d_v=256, d_ff=2048)}
 
 ModelSpec = Union[str, Dict[str, Any]]
 

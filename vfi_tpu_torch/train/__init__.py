@@ -1,2 +1,2 @@
-"""Training of the port: losses (``losses``) and the GAN training environments
-(``environments``)."""
+"""Training of the port: losses (``losses``), the GAN and SCT training
+environments (``environments``) and Super SloMo's (``slomo_env``)."""

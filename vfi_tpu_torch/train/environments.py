@@ -16,6 +16,11 @@ runs no second forward.  Unlike vfi_tpu's pure steps, ``train_step`` updates
 the state's modules and optimizers in place (no second copy of the weights
 or Adam moments) and returns the same state.
 
+SCT models train in :class:`SCTEnvironment` (teacher forcing on a sigmoid
+schedule, random generation orders drawn from the state's ``rng``), Super
+SloMo in ``slomo_env.SloMoEnvironment`` (no discriminator; its state's
+``discriminator`` and ``d_opt`` are None).
+
 Mixed precision (``cfg.train_dtype == "bfloat16"``) is vfi_tpu's explicit
 cast, not autocast: each network runs on bf16 copies of its f32 master
 parameters (``torch.func.functional_call``), so gradients arrive in f32 and
@@ -29,9 +34,10 @@ context frames; in the D step its parameters and all videos are bf16, while
 from __future__ import annotations
 
 import copy
+import math
 import os
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +47,8 @@ from torch.func import functional_call
 from ..api import resolve_device
 from ..models.fill_in import (BidirectionalSimpleAverageFillInModel, BidirectionalTimeWeightedAverageFillInModel,
                               MCNetFillInModel, TAIFillInModel)
+from ..models.sct import BaseSCTFillInModel
+from ..models.slomo import SloMoFillInModel
 from ..nn.discriminator import SNDiscriminator
 from ..ops.image import inverse_transform
 from ..ops.metrics import psnr, quantize_uint8, ssim
@@ -53,13 +61,16 @@ Terms = Dict[str, torch.Tensor]
 @dataclass
 class TrainState:
     """The generator, the discriminator (its ``u`` buffers are vfi_tpu's
-    ``d_sn``), their Adam optimizers, and the number of steps taken."""
+    ``d_sn``; None for a model trained without one), their Adam optimizers,
+    the number of steps taken, and the generator of the environment's random
+    draws (a CPU ``torch.Generator``, or None where it draws nothing)."""
 
     generator: nn.Module
-    discriminator: SNDiscriminator
+    discriminator: Optional[SNDiscriminator]
     g_opt: torch.optim.Adam
-    d_opt: torch.optim.Adam
+    d_opt: Optional[torch.optim.Adam]
     step: int = 0
+    rng: Optional[torch.Generator] = None
 
     @property
     def device(self) -> torch.device:
@@ -92,6 +103,27 @@ class BaseEnvironment:
     def __init__(self, model: nn.Module, cfg):
         self.model = model
         self.cfg = cfg
+
+    def _adam(self, module: nn.Module) -> torch.optim.Adam:
+        return torch.optim.Adam(module.parameters(), lr=self.cfg.lr, betas=(self.cfg.beta1, 0.999), eps=1e-8)
+
+    # -- mixed precision ------------------------------------------------------
+    def _compute_cast(self, tensors):
+        """bf16 copies of the float32 tensors (a dict or a tuple) when
+        ``cfg.train_dtype == "bfloat16"``; the same tensors otherwise.  The
+        cast is differentiable, so gradients reach the f32 masters."""
+        if self.cfg.train_dtype != "bfloat16":
+            return tensors
+
+        def cast(a):
+            return a.to(torch.bfloat16) if a.dtype == torch.float32 else a
+
+        if isinstance(tensors, dict):
+            return {k: cast(a) for k, a in tensors.items()}
+        return tuple(cast(a) for a in tensors)
+
+    def _cast_params(self, module: nn.Module) -> Dict[str, torch.Tensor]:
+        return self._compute_cast(dict(module.named_parameters()))
 
     @torch.inference_mode()
     def forward_test(self, T: int, preceding: torch.Tensor, following: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -147,27 +179,6 @@ class L2GDLDiscEnvironment(BaseEnvironment):
         discriminator.to(dev).train()
         return TrainState(generator, discriminator, self._adam(generator), self._adam(discriminator))
 
-    def _adam(self, module: nn.Module) -> torch.optim.Adam:
-        return torch.optim.Adam(module.parameters(), lr=self.cfg.lr, betas=(self.cfg.beta1, 0.999), eps=1e-8)
-
-    # -- mixed precision ------------------------------------------------------
-    def _compute_cast(self, tensors):
-        """bf16 copies of the float32 tensors (a dict or a tuple) when
-        ``cfg.train_dtype == "bfloat16"``; the same tensors otherwise.  The
-        cast is differentiable, so gradients reach the f32 masters."""
-        if self.cfg.train_dtype != "bfloat16":
-            return tensors
-
-        def cast(a):
-            return a.to(torch.bfloat16) if a.dtype == torch.float32 else a
-
-        if isinstance(tensors, dict):
-            return {k: cast(a) for k, a in tensors.items()}
-        return tuple(cast(a) for a in tensors)
-
-    def _cast_params(self, module: nn.Module) -> Dict[str, torch.Tensor]:
-        return self._compute_cast(dict(module.named_parameters()))
-
     # -- generator loss ------------------------------------------------------
     def _recon_terms(self, out, gt_middle) -> Terms:
         pred01 = inverse_transform(out["pred"])
@@ -181,7 +192,7 @@ class L2GDLDiscEnvironment(BaseEnvironment):
         """(loss, (outputs, terms)); the discriminator runs with ``train=False``."""
         p, m, f = split_batch(targets, K, T, F)
         p, f = self._compute_cast((p, f))
-        out = functional_call(state.generator, self._cast_params(state.generator), (T, p, f))
+        out = self._g_forward(state, T, p, m, f)
         out = {k: a.float() for k, a in out.items()}
         terms = self._recon_terms(out, m)
         extra = self._extra_recon_terms(out, m)
@@ -195,6 +206,11 @@ class L2GDLDiscEnvironment(BaseEnvironment):
         terms.update(extra)
         terms["G_loss"] = loss
         return loss, (out, terms)
+
+    def _g_forward(self, state: TrainState, T: int, p, m, f) -> Dict[str, torch.Tensor]:
+        """The generator on its compute-dtype parameters (``m``, the ground
+        truth middle frames in float32, is there for teacher forcing)."""
+        return functional_call(state.generator, self._cast_params(state.generator), (T, p, f))
 
     # -- discriminator loss --------------------------------------------------
     def _d_loss(self, state: TrainState, pred: torch.Tensor, K: int, T: int, F: int, targets: torch.Tensor):
@@ -279,10 +295,54 @@ class MCNetEnvironment(L2GDLDiscEnvironment):
     min_K = 2
 
 
-def create_training_environment(model: nn.Module, cfg) -> L2GDLDiscEnvironment:
+class SCTEnvironment(L2GDLDiscEnvironment):
+    """The SCT family: L2 + GDL + SN-GAN with sigmoid-scheduled teacher
+    forcing.  With probability ``tf_rate(step)`` a model that has
+    ``forward_train`` consumes the ground-truth middle frames (shifted by
+    one) as its decoder inputs; otherwise it runs free.  The choice, and any
+    random generation order, are drawn from the state's ``rng`` (seeded from
+    ``init_state``'s ``seed``): a uniform draw against the rate, then the
+    orders, as vfi_tpu splits its key.  ``teacher_forced`` (1 or 0) joins the
+    step's terms."""
+
+    def init_state(self, image_size: Tuple[int, int], **kwargs) -> TrainState:
+        state = super().init_state(image_size, **kwargs)
+        state.rng = torch.Generator().manual_seed(kwargs.get("seed", 0))
+        return state
+
+    def tf_rate(self, step: int) -> float:
+        c = self.cfg
+        x = (step - c.tf_offset) / c.tf_decay
+        sig = 1.0 / (1.0 + math.exp(-x)) if x >= 0 else math.exp(x) / (1.0 + math.exp(x))
+        return (c.tf_p_min - c.tf_p_max) * sig + c.tf_p_max
+
+    def _teacher_forcing(self, state: TrainState) -> bool:
+        """One uniform draw from the state's rng against ``tf_rate(step)``."""
+        return bool(torch.rand((), generator=state.rng) < self.tf_rate(state.step))
+
+    def _g_forward(self, state: TrainState, T: int, p, m, f) -> Dict[str, torch.Tensor]:
+        gen = state.generator
+        kwargs = {}
+        forced = hasattr(gen, "forward_train") and self._teacher_forcing(state)
+        if forced:
+            (kwargs["gt_middle"],) = self._compute_cast((m,))
+        if gen.random_order:
+            kwargs["generator"] = state.rng
+        out = functional_call(gen, self._cast_params(gen), (T, p, f), kwargs)
+        return {**out, "teacher_forced": torch.tensor(float(forced), device=p.device)}
+
+    def _g_loss(self, state: TrainState, K: int, T: int, F: int, targets: torch.Tensor):
+        loss, (out, terms) = super()._g_loss(state, K, T, F, targets)
+        terms["teacher_forced"] = out.pop("teacher_forced")
+        return loss, (out, terms)
+
+
+def create_training_environment(model: nn.Module, cfg) -> BaseEnvironment:
     """The environment for a generator, as vfi_tpu dispatches: TAI, TWI (a
     TAI subclass), bi-SA and bi-TWA train in :class:`TAIEnvironment`, MC-Net
-    in :class:`MCNetEnvironment`; any other model raises ``TypeError``.
+    in :class:`MCNetEnvironment`, the SCT family in :class:`SCTEnvironment`,
+    Super SloMo in ``slomo_env.SloMoEnvironment``; any other model raises
+    ``TypeError``.
     Raises ``RuntimeError`` when ``VFI_INT8`` asks for vfi_tpu's int8 convs,
     which are inference-only (their rounding has a zero gradient)."""
     if os.environ.get("VFI_INT8", "0") in ("1", "2"):
@@ -293,6 +353,12 @@ def create_training_environment(model: nn.Module, cfg) -> L2GDLDiscEnvironment:
         return TAIEnvironment(model, cfg)
     if isinstance(model, MCNetFillInModel):
         return MCNetEnvironment(model, cfg)
+    if isinstance(model, SloMoFillInModel):
+        from .slomo_env import SloMoEnvironment
+
+        return SloMoEnvironment(model, cfg)
+    if isinstance(model, BaseSCTFillInModel):
+        return SCTEnvironment(model, cfg)
     raise TypeError(f"no training environment for model type {type(model).__name__}")
 
 

@@ -3,7 +3,9 @@
 Port submodules carry vfi_tpu's flax names, so the flax path
 ``("mcnet", "motion_enc", "dyn1", "kernel")`` is the state_dict key
 ``mcnet.motion_enc.dyn1.weight``.  Conv kernels go from flax HWIO to torch
-OIHW, dense kernels ``[in, out]`` to ``[out, in]``; biases go as they are.
+OIHW, dense kernels ``[in, out]`` to ``[out, in]``; a LayerNorm's or
+GroupNorm's ``scale`` is its ``weight`` (the only 1-D weights); biases go as
+they are.
 The discriminator's ``"sn"`` collection maps to its ``u`` buffers:
 ``("conv0", "sn", "u")`` is ``conv0.sn.u``.  ``params_to_jax`` and
 ``disc_variables_to_jax`` go back, to nested numpy dicts.
@@ -51,7 +53,7 @@ def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     state = {}
     for path, a in _flatten(flax_params).items():
         a = np.asarray(a, np.float32)
-        leaf = {"kernel": "weight", "bias": "bias"}[path[-1]]
+        leaf = {"kernel": "weight", "scale": "weight", "bias": "bias"}[path[-1]]
         if path[-1] == "kernel":
             a = _kernel_to_torch(a)
         state[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.array(a, np.float32, order="C"))
@@ -77,10 +79,16 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         if leaf not in ("weight", "bias"):
             continue
         a = t.detach().cpu().float().numpy()
-        if leaf == "weight":
-            a = _kernel_to_jax(a)
-        _set(tree, tuple(mod) + ({"weight": "kernel", "bias": "bias"}[leaf],), np.ascontiguousarray(a))
+        _set(tree, tuple(mod) + (_flax_leaf(leaf, a.ndim),), np.ascontiguousarray(
+            _kernel_to_jax(a) if leaf == "weight" and a.ndim > 1 else a))
     return tree
+
+
+def _flax_leaf(leaf: str, ndim: int) -> str:
+    """The flax name of a port parameter: a 1-D weight is a norm's ``scale``."""
+    if leaf == "bias":
+        return "bias"
+    return "scale" if ndim == 1 else "kernel"
 
 
 def disc_variables_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -127,11 +135,9 @@ def _flax_shapes(module: torch.nn.Module) -> Dict[str, Dict[Path, Tuple[int, ...
     for key, t in module.state_dict().items():
         *mod, leaf = key.split(".")
         shape = tuple(t.shape)
-        if leaf == "weight":
+        if leaf in ("weight", "bias"):
             flax_shape = tuple(shape[i] for i in (2, 3, 1, 0)) if len(shape) == 4 else shape[::-1]
-            shapes["params"][tuple(mod) + ("kernel",)] = flax_shape
-        elif leaf == "bias":
-            shapes["params"][tuple(mod) + ("bias",)] = shape
+            shapes["params"][tuple(mod) + (_flax_leaf(leaf, len(shape)),)] = flax_shape
         else:
             shapes["sn"][tuple(mod) + (leaf,)] = shape
     return shapes
@@ -145,15 +151,20 @@ def _set(tree: Dict[str, Any], path: Path, a: np.ndarray) -> None:
 
 
 def _draw_params(shapes: Dict[Path, Tuple[int, ...]], rng: np.random.RandomState) -> Dict[str, Any]:
-    """Kernels He-normal and biases small normals, in sorted path order; the
-    kernel heads' outputs (``post_up``) as ``random_jax_params`` says."""
+    """Kernels He-normal, norm scales 1 plus small normals and biases small
+    normals, in sorted path order; the kernel heads' outputs (``post_up``) as
+    ``random_jax_params`` says."""
     tree: Dict[str, Any] = {}
     for path, shape in sorted(shapes.items()):
-        if path[-1] == "kernel":
+        if path[-1] == "scale":
+            a = 1.0 + rng.standard_normal(shape) * 0.1
+        elif path[-1] == "kernel":
             fan_in = int(np.prod(shape[:-1]))
             std = np.sqrt(2.0 / fan_in)
             if path[-2] == "post_up":
                 std = 0.5 / shape[-1] / np.sqrt(fan_in)
+            elif path[-3:-1] == ("frame_decoder", "d3b"):  # SCT's frame output: keep tanh off its rails
+                std *= 0.2
             a = rng.standard_normal(shape) * std
         else:
             a = rng.standard_normal(shape) * 0.01
@@ -174,7 +185,10 @@ def random_jax_params(model: ModelSpec, seed: int) -> Dict[str, Any]:
     constant).  Biases are small normals, so the bias mapping is exercised
     too.  The kernel heads' outputs (``post_up``) have biases centred on 1/ks
     and small weights, so each per-pixel kernel sums to about 1, as trained
-    sepconv kernels do.
+    sepconv kernels do.  Norm scales (LayerNorm, GroupNorm) are 1 plus small
+    normals.  The SCT frame decoder's output conv (``frame_decoder/d3b``) is
+    drawn at a fifth of He's std, so that its tanh is not saturated (at He's
+    std 94 % of Bypass's full-width outputs were).
     """
     with torch.device("meta"):
         m = create_model(model)
