@@ -17,7 +17,7 @@ Phases, one JSON line each:
 
   1. device      — the card's name and count; fails without CUDA.
   2. build       — compiles every CUDA kernel from ``vfi_tpu_torch/ops/csrc``
-                   (four sources), all nvcc processes at once; fails if ptxas
+                   (five sources), all nvcc processes at once; fails if ptxas
                    reports a spill in any instantiation.
   3. kernel      — each kernel against its plain PyTorch version on the card:
                    f32 (TF32 off) within 1e-4 * max(1, max|ref|); bf16 within
@@ -40,6 +40,23 @@ Phases, one JSON line each:
                    what it stores, max-abs at 4096 points of each output and
                    uint8 PSNR of pred's frames), then bf16 uint8 requests at
                    B=16, launches counted.
+  6a. qconv_kernel — the int8 serving kernels (``ops/csrc/qconv_int8.cu``)
+                   against their plain versions at every conv shape of
+                   TAI_gray's int8 forward (36) and SloMo_color's 7x7 and 1x1
+                   convs, on 2 images: the quantize byte-equal, the int32 sums
+                   exact, the dequantized outputs within one float32 / bfloat16
+                   ulp; then each TAI_gray shape timed at its images per call
+                   at B=64 beside its bound and cuDNN's bf16 conv.
+  6b. serve_int8 — TAI_gray under VFI_INT8 (f32, TF32 off) against
+                   ``tests/torch_golden_tai_gray_int8.npz``: static with the
+                   golden's scales, static with the port's own calibration,
+                   dynamic; 180 int8 conv launches and 2 banded ones per
+                   forward; every int8 conv call within one ulp of its plain
+                   recomputation; pred at uint8 PSNR >= 45 dB against vfi_tpu's
+                   int8 pred and no more than 0.5 dB further from the float32
+                   golden than vfi_tpu's.  bf16 timings beside the float forward
+                   (B=64 static and dynamic, B=8 static), TAI_color 256x320
+                   static at B=16.
   7. predict     — TAI_gray served by ``vfi_tpu_torch.cli.predict`` from a
                    port snapshot (``utils/checkpoint.py``) of the seed-0
                    weights, on 130 synthetic clips of exactly 15 frames:
@@ -56,6 +73,11 @@ Phases, one JSON line each:
                    and 0 banded launches.  Then ``timing_predict``: the bf16
                    run timed at VFI_INFLIGHT 2 and 1 (loop, clips/s, middle
                    frames/s, the forward's device share, host seconds).
+  7a. predict_int8 — the same CLI with ``--quantize int8`` (bf16
+                   ``--device_normalize`` B=64, calibration on 8 clips, the
+                   validate_quant gate on 4) and ``--quantize int8_dynamic``
+                   (16 clips, B=16): the calibration and gate lines, every PNG,
+                   and the launches of calibration, gate and loop.
   8. train_golden — two f32 training steps of TAI_gray at B=2 against the JAX
                    training golden (``tests/torch_golden_train_tai_gray.npz``):
                    loss terms within rel 1e-3, step-1 gradient projections
@@ -135,7 +157,7 @@ Phases, one JSON line each:
                    training shapes, the adjoints at both training shapes;
                    with ``--baseline``, another checkout's four kernels in
                    turns with these); a ``kernels`` line with each kernel's
-                   numbers.
+                   numbers, the two int8 kernels' from ``qconv_kernel``.
 
 Prints the card's name and power limit (nvidia-smi) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.  Any failed gate
@@ -168,15 +190,18 @@ from vfi_tpu_torch.data import native_loader
 from vfi_tpu_torch.data.datasets import ContiguousVideoClipDataset, batch_iterator
 from vfi_tpu_torch.data.synthetic import make_videolist
 from vfi_tpu_torch.models.registry import create_model, model_config
+from vfi_tpu_torch.nn import quant
+from vfi_tpu_torch.nn.layers import Conv
 from vfi_tpu_torch.nn.vgg import random_vgg16_npz
 from vfi_tpu_torch.ops import _kernels
+from vfi_tpu_torch.ops import qconv as qconv_ops
 from vfi_tpu_torch.ops import sepconv as sepconv_ops
 from vfi_tpu_torch.train.environments import L2GDLDiscEnvironment, create_training_environment
 from vfi_tpu_torch.utils import checkpoint as ckpt
 from vfi_tpu_torch.utils.config import TrainConfig
 from vfi_tpu_torch.utils.png import read_png, write_png
-from vfi_tpu_torch.utils.params import (disc_variables_from_jax, params_from_jax, random_jax_disc_variables,
-                                        random_jax_params)
+from vfi_tpu_torch.utils.params import (disc_variables_from_jax, params_from_jax, quant_from_jax,
+                                        random_jax_disc_variables, random_jax_params)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_tai_gray.npz")
@@ -197,6 +222,9 @@ TERM_NAMES = ("G_Lp", "G_gdl", "G_GAN", "G_Lp_forward", "G_Lp_backward", "G_gdl_
               "G_loss", "D_fake", "D_real")
 PRED_KEYS = ("pred", "pred_forward", "pred_backward")
 KERNELS = ("sepconv_fwd_mxu", "sepconv_fwd", "sepconv_bwd_vh", "sepconv_bwd_x")
+# The int8 serving kernels (csrc/qconv_int8.cu), counted in ops/qconv.py.
+QKERNELS = ("qconv_int8", "quantize_int8")
+COUNTED = {**{k: sepconv_ops for k in KERNELS}, **{k: qconv_ops for k in QKERNELS}}
 # The two forward kernels: wrapper, plain version, and the line of the TPU
 # kernel's pallas_call in vfi_tpu/ops/sepconv.py.
 FORWARDS = {
@@ -693,16 +721,16 @@ def phase_kernel_checks(gen) -> dict:
 
 
 def _launch_counts() -> dict:
-    return {k: getattr(sepconv_ops, f"{k}_launches") for k in KERNELS}
+    return {k: getattr(module, f"{k}_launches") for k, module in COUNTED.items()}
 
 
 def _reset_launch_counts() -> None:
-    for k in KERNELS:
-        setattr(sepconv_ops, f"{k}_launches", 0)
+    for k, module in COUNTED.items():
+        setattr(module, f"{k}_launches", 0)
 
 
 def _gate_launches(path: str, launches: dict, want: dict) -> None:
-    for k in KERNELS:
+    for k in COUNTED:
         gate(launches[k] == want.get(k, 0), f"{path}: {k} launched {launches[k]} times, want {want.get(k, 0)}")
 
 
@@ -714,7 +742,7 @@ def uncounted():
         yield
     finally:
         for k, n in saved.items():
-            setattr(sepconv_ops, f"{k}_launches", n)
+            setattr(COUNTED[k], f"{k}_launches", n)
 
 
 def phase_serve(state, impl=None) -> dict:
@@ -1012,6 +1040,430 @@ def phase_timing_predict(root: str, videolist: str, warm: dict) -> None:
             os.environ.pop("VFI_INFLIGHT", None)
         else:
             os.environ["VFI_INFLIGHT"] = saved
+
+
+# The int8 serving phases: vfi_tpu's VFI_INT8 / --quantize modes through the
+# port's int8 kernels (ops/csrc/qconv_int8.cu).
+INT8_GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_tai_gray_int8.npz")
+# SloMo_color's 7x7 first convs and 1x1 out convs (C_in, C_out, k, H, W), checked beside TAI_gray's.
+SLOMO_QCONV_SHAPES = ((6, 32, 7, 256, 320), (16, 32, 7, 256, 320), (32, 32, 7, 256, 320), (32, 4, 1, 256, 320),
+                      (32, 5, 1, 256, 320))
+# The conv timed in the kernels line: TAI_gray's most frequent int8 conv
+# (MC-Net's 3x3 256->256 convs at 32x32, 25 calls per forward), at B=64.
+QCONV_HEADLINE = (256, 256, 3, 32, 32, 128)
+INT8_SERVE_B = 64
+
+
+@contextlib.contextmanager
+def vfi_int8(mode: str):
+    """VFI_INT8 set to ``mode`` inside (create_model reads it), as it was after."""
+    saved = os.environ.get("VFI_INT8")
+    os.environ["VFI_INT8"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("VFI_INT8")
+        if saved is not None:
+            os.environ["VFI_INT8"] = saved
+
+
+def int8_inpainter(model, state, mode: str, dtype) -> VideoInpainter:
+    with vfi_int8(mode):
+        return VideoInpainter(model, state, device="cuda", dtype=dtype)
+
+
+def int8_calls(model, T, p, f) -> tuple[dict, list]:
+    """One forward of ``model`` with every QConv call recorded: (outputs,
+    [(path, C_in, C_out, k, H, W, images)]), the run's own schedule."""
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda m, inp, n=n: calls.append(
+        (n, inp[0].shape[1], m.out_channels, m.kernel_size[0], inp[0].shape[2], inp[0].shape[3], inp[0].shape[0])))
+        for n, m in quant.qconvs(model).items()]
+    try:
+        with torch.inference_mode():
+            out = model(T, p, f)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, calls
+
+
+def int8_schedule(state) -> list:
+    """TAI_gray's int8 conv calls in one forward on the golden inputs (dynamic
+    mode, uncounted): [(path, C_in, C_out, k, H, W, images)]."""
+    ip = int8_inpainter(GOLDEN["model_key"], state, "1", torch.float32)
+    p, f = (torch.from_numpy(a).cuda() for a in golden_inputs())
+    with uncounted():
+        _, calls = int8_calls(ip.model, GOLDEN["T"], p, f)
+    return calls
+
+
+def int8_peak(peak) -> float:
+    """Dense int8 tensor-core rate: twice the dense bf16 rate on these cards (data sheets)."""
+    return 2 * peak[1]
+
+
+def qconv_bound_ms(images, cin, cout, k, h, w, out_bytes, peak) -> tuple[float, str]:
+    """xq, wq read once, the output written once, over the memory rate; or
+    2 * MAC (the unpadded channels) over the dense int8 rate."""
+    cp = qconv_ops.padded_channels(cin)
+    nbytes = images * h * w * cp + cout * k * k * cp + images * cout * h * w * out_bytes
+    t_bytes = nbytes / peak[0] * 1e3
+    t_ops = 2 * images * h * w * cout * cin * k * k / int8_peak(peak) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def quantize_bound_ms(x: torch.Tensor, peak) -> tuple[float, str]:
+    n, c, h, w = x.shape
+    return (x.numel() * x.element_size() + n * h * w * qconv_ops.padded_channels(c)) / peak[0] * 1e3, "bytes"
+
+
+def f32_ulp(t: torch.Tensor) -> torch.Tensor:
+    a = t.abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+def _qconv_operands(images, cin, cout, k, h, w, gen):
+    """x ~ 2 N(0, 1) in float32, its dynamic scale, a QConv's int8 weights
+    (He-normal float weights through ``QConv.quantized_weight``) and a bias."""
+    x = torch.randn(images, cin, h, w, device="cuda", generator=gen) * 2
+    x_scale = torch.clamp_min(x.abs().amax() * quant.INV_127, quant.EPS)
+    conv = torch.nn.Sequential(Conv(cin, cout, k)).cuda()
+    with torch.no_grad():
+        conv[0].weight.copy_(torch.randn(conv[0].weight.shape, device="cuda", generator=gen)
+                             * math.sqrt(2.0 / (cin * k * k)))
+        conv[0].bias.copy_(torch.randn(cout, device="cuda", generator=gen) * 0.1)
+    quant.quantize_convs(conv, static=False)
+    wq, w_scale = conv[0].quantized_weight()
+    return x, x_scale, wq, (x_scale * w_scale).contiguous(), conv[0].bias.detach(), conv[0].weight.detach()
+
+
+def phase_qconv_kernel(gen, peak, schedule) -> dict:
+    """Both int8 kernels against their plain versions at every conv shape of
+    TAI_gray's int8 forward (``schedule``) and SloMo_color's 7x7 and 1x1
+    convs, on 2 images: the quantize byte-equal (float32 and bfloat16 input),
+    the int32 sums exact, the dequantized float32 output within one float32
+    ulp and bfloat16 within one bfloat16 ulp.  Then each TAI_gray (shape,
+    images per call at B=64) timed, the quantize of its bf16 input and the
+    conv (bf16 out), beside its bound and cuDNN's bf16 conv at the same
+    shape.  Returns the kernels line's numbers."""
+    t0 = time.perf_counter()
+    shapes = sorted({c[1:6] for c in schedule})
+    worst = {"qconv_int8_int32": 0, "qconv_int8_f32_ulps": 0.0, "qconv_int8_bf16_ulps": 0.0}
+    with uncounted():
+        for cin, cout, k, h, w in shapes + list(SLOMO_QCONV_SHAPES):
+            x, s, wq, scale, b, _ = _qconv_operands(2, cin, cout, k, h, w, gen)
+            for xin in (x, x.bfloat16()):
+                xq = qconv_ops.quantize_int8_cuda(xin, s)
+                torch.cuda.synchronize()
+                gate(torch.equal(xq, qconv_ops.quantize_int8_plain(xin, s)),
+                     f"quantize_int8 {xin.dtype} {tuple(xin.shape)}: bytes differ from the plain quantize")
+            xq = qconv_ops.quantize_int8_cuda(x, s)
+            acc, acc_p = qconv_ops.qconv_int8_cuda(xq, wq), qconv_ops.qconv_int8_plain(xq, wq)
+            torch.cuda.synchronize()
+            d_int = int((acc.long() - acc_p.long()).abs().max())
+            y32 = qconv_ops.qconv_int8_cuda(xq, wq, scale, b, torch.float32)
+            want32 = qconv_ops.qconv_int8_plain(xq, wq, scale, b, torch.float32)
+            y16 = qconv_ops.qconv_int8_cuda(xq, wq, scale, b, torch.bfloat16)
+            want16 = qconv_ops.qconv_int8_plain(xq, wq, scale, b, torch.bfloat16)
+            torch.cuda.synchronize()
+            ulps32 = float(((y32 - want32).abs() / f32_ulp(want32)).max())
+            ulps16 = float(((y16.float() - want16.float()).abs() / bf16_ulp(want16.float())).max())
+            worst["qconv_int8_int32"] = max(worst["qconv_int8_int32"], d_int)
+            worst["qconv_int8_f32_ulps"] = max(worst["qconv_int8_f32_ulps"], ulps32)
+            worst["qconv_int8_bf16_ulps"] = max(worst["qconv_int8_bf16_ulps"], ulps16)
+            gate(d_int == 0, f"qconv_int8 {cin, cout, k, h, w}: int32 sums off the plain conv by {d_int}")
+            gate(ulps32 <= 1.0, f"qconv_int8 {cin, cout, k, h, w}: float32 output {ulps32} ulps off the plain epilogue")
+            gate(ulps16 <= 1.0, f"qconv_int8 {cin, cout, k, h, w}: bfloat16 output {ulps16} ulps off")
+            del x, xq, acc, acc_p, y32, want32, y16, want16
+        emit("qconv_kernel_checks", tai_gray_shapes=len(shapes), slomo_shapes=len(SLOMO_QCONV_SHAPES), images=2,
+             quantize_int8_bytes_equal=True, **worst)
+        torch.cuda.empty_cache()
+
+        counts = {}
+        for _, cin, cout, k, h, w, n in schedule:
+            key = (cin, cout, k, h, w, n * INT8_SERVE_B)
+            counts[key] = counts.get(key, 0) + 1
+        totals = {"ms": 0.0, "quantize_ms": 0.0, "bound_ms": 0.0, "quantize_bound_ms": 0.0, "cudnn_bf16_ms": 0.0}
+        headline = None
+        for key, calls in sorted(counts.items()):
+            cin, cout, k, h, w, images = key
+            x, s, wq, scale, b, w32 = _qconv_operands(images, cin, cout, k, h, w, gen)
+            x16, w16, b16 = x.bfloat16(), w32.bfloat16(), b.bfloat16()
+            del x
+            xq = qconv_ops.quantize_int8_cuda(x16, s)
+            q_ms = cuda_ms(lambda: qconv_ops.quantize_int8_cuda(x16, s), iters=5)
+            c_ms = cuda_ms(lambda: qconv_ops.qconv_int8_cuda(xq, wq, scale, b, torch.bfloat16), iters=5)
+            cudnn_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x16, w16, b16, padding=k // 2), iters=5)
+            bound, by = qconv_bound_ms(images, cin, cout, k, h, w, 2, peak)
+            q_bound, _ = quantize_bound_ms(x16, peak)
+            emit("timing_qconv", shape=[cin, cout, k, h, w], images=images, calls_per_forward=calls, ms=c_ms,
+                 bound_ms=bound, bound_by=by, achieved_over_bound=bound / c_ms, cudnn_bf16_ms=cudnn_ms,
+                 quantize_ms=q_ms, quantize_bound_ms=q_bound)
+            for name, val in (("ms", c_ms), ("quantize_ms", q_ms), ("bound_ms", bound),
+                              ("quantize_bound_ms", q_bound), ("cudnn_bf16_ms", cudnn_ms)):
+                totals[name] += calls * val
+            if key == QCONV_HEADLINE:
+                y = qconv_ops.qconv_int8_cuda(xq, wq, scale, b, torch.float32)
+                plain_ms = cuda_ms(lambda: qconv_ops.qconv_int8_plain(xq, wq, scale, b, torch.bfloat16), iters=1,
+                                   warmup=1)
+                q_plain_ms = cuda_ms(lambda: qconv_ops.quantize_int8_plain(x16, s), iters=3, warmup=1)
+                q_err = int((qconv_ops.quantize_int8_cuda(x16, s).int()
+                             - qconv_ops.quantize_int8_plain(x16, s).int()).abs().max())
+                err = float((y - qconv_ops.qconv_int8_plain(xq, wq, scale, b, torch.float32)).abs().max())
+                headline = dict(shape=[cin, cout, k, h, w], images=images, ms=c_ms, plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=by, cudnn_bf16_ms=cudnn_ms, max_abs_err=err, quantize_ms=q_ms,
+                                quantize_plain_ms=q_plain_ms, quantize_bound_ms=q_bound, quantize_max_abs_err=q_err)
+                del y
+            del x16, w16, b16, xq, wq, scale, b, w32
+            torch.cuda.empty_cache()
+    gate(headline is not None, f"the headline conv {QCONV_HEADLINE} is not in TAI_gray's int8 schedule")
+    emit("timing_qconv_forward", model="TAI_gray", batch=INT8_SERVE_B, calls=len(schedule),
+         distinct=len(counts), **{f"{k}_per_forward": v for k, v in totals.items()})
+    emit("qconv_kernel", wall_s=time.perf_counter() - t0)
+    return dict(headline=headline, totals=totals)
+
+
+def int8_golden_state(golden) -> dict:
+    """The golden's ``amax/<flax path>`` entries as a "quant" collection, converted."""
+    tree = {}
+    for key in golden.files:
+        if key.startswith("amax/"):
+            node = tree
+            for part in key.split("/")[1:]:
+                node = node.setdefault(part, {})
+            node["act_amax"] = golden[key]
+    return quant_from_jax(tree)
+
+
+def _time_in_turns(fns: dict, iters: int = 5) -> dict:
+    """CUDA-event ms of each callable, timed in turns (a, b, ..., b, a) and
+    averaged, with the peak memory of each."""
+    out = {name: [] for name in fns}
+    mem = {}
+    order = list(fns) + list(reversed(fns))
+    for name in order:
+        torch.cuda.reset_peak_memory_stats()
+        out[name].append(cuda_ms(fns[name], iters=iters))
+        mem[name] = torch.cuda.max_memory_allocated()
+    return {name: (sum(v) / len(v), mem[name]) for name, v in out.items()}
+
+
+def _calls_vs_plain(model, calls) -> float:
+    """Each recorded QConv call (path, x, y) recomputed by the plain versions
+    on the same input and the module's own scales: the worst |y - plain| in
+    float32 ulps of the plain output."""
+    worst = 0.0
+    convs = quant.qconvs(model)
+    for path, x, y in calls:
+        m = convs[path]
+        amax = m.act_amax if m.static else x.abs().amax().float()
+        x_scale = torch.clamp_min(amax * quant.INV_127, quant.EPS)
+        wq, w_scale = m.quantized_weight()
+        want = qconv_ops.qconv_int8_plain(qconv_ops.quantize_int8_plain(x, x_scale), wq, x_scale * w_scale,
+                                          m.bias.detach().float(), x.dtype)
+        worst = max(worst, float(((y.float() - want.float()).abs() / f32_ulp(want.float())).max()))
+    return worst
+
+
+def phase_serve_int8(state, gen) -> dict:
+    """TAI_gray in vfi_tpu's int8 modes (VFI_INT8 at construction), f32 with
+    TF32 off, on the golden inputs, against ``tests/torch_golden_tai_gray_int8.npz``
+    and the float golden: static with the golden's scales (``quant_from_jax``),
+    static with the port's own calibration from zero, and dynamic.  Gates:
+    launches per forward from the run's own schedule; every int8 conv call of
+    the forward, recomputed by the plain versions on its recorded input,
+    within one float32 ulp; pred at uint8 PSNR >= 45 dB against vfi_tpu's
+    int8 pred (static with its scales, dynamic); and the int8 mode's loss against the float32 golden within
+    0.5 dB (vfi_tpu's --quant_tol_db) of vfi_tpu's own loss.  max-abs and
+    the calibrated amax against the golden's are printed, not gated: the two
+    packages' float noise flips int8 roundings in the rollout, and the
+    flips move later scales (PERF.md §6).  Then bf16 timings beside the
+    float forward, and TAI_color static at B=16.  Returns its paths' launches."""
+    t0 = time.perf_counter()
+    cfg = GOLDEN
+    golden = np.load(INT8_GOLDEN_PATH)
+    for k, val in cfg.items():
+        gate(str(golden[k]) == str(val), f"int8 golden fixture {k}={golden[k]} but chip_smoke uses {val}")
+    f32_golden = np.load(GOLDEN_PATH)["pred"]
+    T = cfg["T"]
+    p, f = (torch.from_numpy(a).cuda() for a in golden_inputs())
+    amax = int8_golden_state(golden)
+    paths, res = {}, {}
+    for mode in ("static", "own_calibration", "dynamic"):
+        ip = int8_inpainter(cfg["model_key"], state, "1" if mode == "dynamic" else "2", torch.float32)
+        if mode == "static":
+            quant.load_act_amax(ip.model, amax)
+        elif mode == "own_calibration":  # from zero, on the same inputs
+            with quant.calibrate(ip.model), uncounted(), torch.inference_mode():
+                ip.model(T, p, f)
+            mine = quant.act_amax_state(ip.model)
+            gate(sorted(mine) == sorted(amax), "serve_int8: the port's static convs are not the golden's")
+            rel = np.array([abs(float(mine[k]) - float(v)) / max(abs(float(v)), 1e-30) for k, v in amax.items()])
+            res["calibration_rel"] = dict(max=float(rel.max()), median=float(np.median(rel)),
+                                          over_1e_4=int((rel > 1e-4).sum()), act_amax=len(rel))
+        recorded = []
+        hooks = [m.register_forward_hook(lambda m, inp, out, n=n: recorded.append((n, inp[0].clone(), out.clone())))
+                 for n, m in quant.qconvs(ip.model).items()]
+        _reset_launch_counts()
+        try:
+            with torch.inference_mode():
+                out = ip.model(T, p, f)
+        finally:
+            for hk in hooks:
+                hk.remove()
+        paths[f"serve_int8_{mode}"] = launches = _launch_counts()
+        _gate_launches(f"serve_int8_{mode}", launches, {"qconv_int8": len(recorded), "quantize_int8": len(recorded),
+                                                        "sepconv_fwd_mxu": 2})
+        with uncounted():
+            ulps = _calls_vs_plain(ip.model, recorded)
+        got = out["pred"].float().cpu().numpy()
+        want = golden["pred_dynamic" if mode == "dynamic" else "pred_static"]
+        res[mode] = dict(calls=len(recorded), calls_vs_plain_max_ulps=ulps, max_abs=float(np.abs(got - want).max()),
+                         u8_psnr_db=u8_psnr(u8(got), u8(want)),
+                         vs_f32_golden_u8_psnr_db=u8_psnr(u8(got), u8(f32_golden)),
+                         vfi_tpu_vs_f32_golden_u8_psnr_db=u8_psnr(u8(want), u8(f32_golden)),
+                         vfi_tpu_vs_f32_golden_max_abs=float(np.abs(want - f32_golden).max()))
+        del ip, out, recorded
+        torch.cuda.empty_cache()
+    emit("serve_int8_golden", dtype="float32", tf32=False, **res)
+    for mode in ("static", "own_calibration", "dynamic"):
+        r = res[mode]
+        gate(r["calls_vs_plain_max_ulps"] <= 1.0,
+             f"serve_int8 {mode}: an int8 conv call {r['calls_vs_plain_max_ulps']} ulps off its plain recomputation")
+        if mode != "own_calibration":  # other scales than the golden's: held by the loss alone
+            gate(r["u8_psnr_db"] >= 45.0,
+                 f"serve_int8 {mode}: pred uint8 PSNR {r['u8_psnr_db']} dB < 45 against the golden")
+        loss = r["vfi_tpu_vs_f32_golden_u8_psnr_db"] - r["vs_f32_golden_u8_psnr_db"]
+        gate(loss <= 0.5, f"serve_int8 {mode}: {loss} dB further from the float32 golden than vfi_tpu's int8 pred")
+    torch.cuda.empty_cache()
+
+    # bf16 timings: the float forward and the int8 forwards in turns.
+    H, W = cfg["H"], cfg["W"]
+    timings = []
+    for B, modes in ((INT8_SERVE_B, ("static", "dynamic")), (8, ("static",))):
+        pb = (torch.rand(B, cfg["K"], H, W, 1, device="cuda", generator=gen) * 2 - 1).bfloat16()
+        fb = (torch.rand(B, cfg["F"], H, W, 1, device="cuda", generator=gen) * 2 - 1).bfloat16()
+        ips = {"float": VideoInpainter(cfg["model_key"], state, device="cuda", dtype=torch.bfloat16)}
+        for mode in modes:
+            ips[mode] = int8_inpainter(cfg["model_key"], state, "2" if mode == "static" else "1", torch.bfloat16)
+        with uncounted():
+            if "static" in ips:
+                with quant.calibrate(ips["static"].model), torch.inference_mode():
+                    ips["static"].model(T, pb, fb)
+            times = _time_in_turns({name: (lambda ip=ip: ip.forward(T, pb, fb)) for name, ip in ips.items()})
+        for name, (ms, mem) in times.items():
+            timings.append(dict(mode=name, batch=B, ms_per_batch=ms, middle_frames_per_s=B * T / (ms / 1e3),
+                                max_memory_allocated_bytes=mem))
+            emit("timing_serve_int8", model=cfg["model_key"], dtype="bfloat16", **timings[-1],
+                 vs_float=times["float"][0] / ms)
+        del ips, pb, fb
+        torch.cuda.empty_cache()
+
+    # TAI_color at 256x320, bf16, static (calibrated on its own batch), B=16.
+    color = params_from_jax(random_jax_params("TAI_color", 0))
+    ip = int8_inpainter("TAI_color", color, "2", torch.bfloat16)
+    B, Hc, Wc = 16, 256, 320
+    pc = (torch.rand(B, 5, Hc, Wc, 3, device="cuda", generator=gen) * 2 - 1).bfloat16()
+    fc = (torch.rand(B, 5, Hc, Wc, 3, device="cuda", generator=gen) * 2 - 1).bfloat16()
+    with quant.calibrate(ip.model), uncounted(), torch.inference_mode():
+        ip.model(T, pc, fc)
+    _reset_launch_counts()
+    out, calls = int8_calls(ip.model, T, pc, fc)
+    paths["serve_int8_color"] = launches = _launch_counts()
+    _gate_launches("serve_int8_color", launches, {"qconv_int8": len(calls), "quantize_int8": len(calls),
+                                                  "sepconv_fwd_mxu": 2})
+    finite = bool(torch.isfinite(out["pred"]).all())
+    gate(finite, "serve_int8_color: non-finite pred")
+    flt = VideoInpainter("TAI_color", color, device="cuda", dtype=torch.bfloat16)
+    with uncounted():
+        times = _time_in_turns({"float": lambda: flt.forward(T, pc, fc), "static": lambda: ip.forward(T, pc, fc)})
+    for name, (ms, mem) in times.items():
+        emit("timing_serve_int8", model="TAI_color", dtype="bfloat16", mode=name, batch=B, shape=[Hc, Wc, 3],
+             ms_per_batch=ms, middle_frames_per_s=B * T / (ms / 1e3), max_memory_allocated_bytes=mem,
+             vs_float=times["float"][0] / ms)
+    emit("serve_int8_color", calls=len(calls), finite=finite, **launches)
+    del ip, flt, out, pc, fc
+    torch.cuda.empty_cache()
+    emit("serve_int8", wall_s=time.perf_counter() - t0)
+    return paths
+
+
+@contextlib.contextmanager
+def stage_launches(record: dict):
+    """Record the launches of the predict CLI's calibration and its
+    --validate_quant gate (each stage's counts, taken around it)."""
+    calibrate, validate = quant.calibrate, predict_cli._validate_quant
+
+    @contextlib.contextmanager
+    def counted_calibrate(model):
+        before = _launch_counts()
+        with calibrate(model):
+            yield model
+        record["calibration"] = {k: n - before[k] for k, n in _launch_counts().items()}
+
+    def counted_validate(*args, **kwargs):
+        before = _launch_counts()
+        validate(*args, **kwargs)
+        record["gate"] = {k: n - before[k] for k, n in _launch_counts().items()}
+
+    quant.calibrate, predict_cli._validate_quant = counted_calibrate, counted_validate
+    try:
+        yield record
+    finally:
+        quant.calibrate, predict_cli._validate_quant = calibrate, validate
+
+
+def phase_predict_int8(root: str, videolist: str, per_forward: int) -> dict:
+    """The predict CLI from ``phase_predict``'s snapshot and clips in vfi_tpu's
+    int8 modes: ``--quantize int8``, bf16 ``--device_normalize`` at B=64 with
+    the default gate (calibration on 8 clips, the gate on 4), then
+    ``--quantize int8_dynamic`` on 16 clips at B=16: the calibration and gate
+    lines, every PNG, and the launches of calibration, gate and loop
+    (``per_forward`` int8 convs in each int8 forward, 2 banded sepconv
+    launches in every forward, the gate's float32 one included)."""
+    t0 = time.perf_counter()
+    cfg = PREDICT
+    paths = {}
+    runs = (("predict_int8", "int8", videolist, cfg["clips"], cfg["batch"], 8, 4),
+            ("predict_int8_dynamic", "int8_dynamic", _head(videolist, 16, os.path.join(root, "list16_int8.txt")), 16,
+             16, 0, 4))
+    for path, mode, lst, clips, batch, n_cal, n_val in runs:
+        qual = os.path.join(root, f"qual_{path}")
+        stages = {}
+        _reset_launch_counts()
+        with stage_launches(stages):
+            stats, stdout = run_predict(_predict_args(cfg, root, lst, qual, "bfloat16", batch,
+                                                      ["--device_normalize", "--quantize", mode]))
+        paths[path] = launches = _launch_counts()
+        pngs = _pngs(qual)
+        shutil.rmtree(qual)
+        batches = -(-clips // batch)
+        want = {"calibration": {"qconv_int8": per_forward if n_cal else 0, "quantize_int8": per_forward if n_cal else 0,
+                                "sepconv_fwd_mxu": 2 if n_cal else 0},
+                "gate": {"qconv_int8": per_forward, "quantize_int8": per_forward, "sepconv_fwd_mxu": 4}}
+        total = {k: sum(w.get(k, 0) for w in want.values()) + (per_forward * batches if k in QKERNELS else 0)
+                 for k in COUNTED}
+        total["sepconv_fwd_mxu"] += 2 * batches
+        cal_line = f"int8 activation scales calibrated on {n_cal} clips"
+        gate_line = f"validate_quant ({n_val} clips): PSNR f32"
+        emit(path, dtype="bfloat16", batch=batch, clips=stats["clips"], batches=stats["batches"], folders=len(pngs),
+             loop_s=stats["loop_s"], forward_s=stats["forward_s"],
+             middle_frames_per_s=stats["clips"] * cfg["T"] / stats["loop_s"],
+             calibration_line=cal_line in stdout,
+             gate_line=[ln for ln in stdout.splitlines() if "validate_quant" in ln],
+             stage_launches=stages, **launches)
+        gate(len(pngs) == clips and all(len(v) == cfg["K"] + 2 * cfg["T"] + cfg["F"] for v in pngs.values()),
+             f"{path} wrote {len(pngs)} folders of {sorted({len(v) for v in pngs.values()})} PNGs")
+        gate((cal_line in stdout) == bool(n_cal), f"{path}: calibration line {'missing' if n_cal else 'printed'}")
+        gate(gate_line in stdout and "REFUSED" not in stdout, f"{path}: the validate_quant line is missing")
+        for stage, w in want.items():
+            got = stages.get(stage, {})
+            for k in COUNTED:
+                gate(got.get(k, 0) == w.get(k, 0), f"{path} {stage}: {k} launched {got.get(k, 0)}, want {w.get(k, 0)}")
+        _gate_launches(path, launches, total)
+    emit("predict_int8", wall_s=time.perf_counter() - t0)
+    return paths
 
 
 def phase_train_golden():
@@ -1832,7 +2284,7 @@ def timed_in_turns(kernel, args, baseline=None, iters=10):
         return ms, (b0 + cuda_ms(lambda: baseline(*args), iters=iters)) / 2
 
 
-def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict, gen, baseline=None):
+def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict, gen, qconv: dict, baseline=None):
     fwd = {}
     for shape_name, (BT, H, W, C) in FORWARD_SHAPES.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -1918,6 +2370,23 @@ def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict
             "color_bound_ms": cbound16, "color_bound_by": cby16, "color_ms_f32": c32, "color_plain_ms_f32": cplain32,
             "color_bound_ms_f32": cbound32, "color_bound_by_f32": cby32, **baseline_keys,
         })
+    # The int8 kernels: no TPU kernel (vfi_tpu left the int8 conv to XLA);
+    # timed at QCONV_HEADLINE, with the sums over one B=64 TAI_gray forward.
+    h, t = qconv["headline"], qconv["totals"]
+    for name, replaces, keys in (
+            ("qconv_int8", "vfi_tpu/nn/quant.py:114", dict(
+                max_abs_err=h["max_abs_err"], ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
+                bound_by=h["bound_by"], cudnn_bf16_ms=h["cudnn_bf16_ms"], ms_per_forward=t["ms"],
+                bound_ms_per_forward=t["bound_ms"], cudnn_bf16_ms_per_forward=t["cudnn_bf16_ms"])),
+            ("quantize_int8", "vfi_tpu/nn/quant.py:110", dict(
+                max_abs_err=h["quantize_max_abs_err"], ms=h["quantize_ms"], plain_ms=h["quantize_plain_ms"],
+                bound_ms=h["quantize_bound_ms"], bound_by="bytes", ms_per_forward=t["quantize_ms"],
+                bound_ms_per_forward=t["quantize_bound_ms"]))):
+        total, by_path = launches(name)
+        kernels.append({"name": name, "route": "cuda", "source": "vfi_tpu_torch/ops/csrc/qconv_int8.cu",
+                        "replaces": replaces, "replaces_what": "XLA's int8 conv and its quantize (no Pallas kernel)",
+                        "launches": total, "launches_by_path": by_path, "library_ms": None, **keys,
+                        "shape": h["shape"], "images": h["images"], "dtype": "bfloat16 in, int8, bfloat16 out"})
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
@@ -2079,7 +2548,8 @@ def main(argv) -> int:
     ptxas = {n: [ln.strip() for ln in _kernels.build_log(n).splitlines() if "registers" in ln or "spill" in ln]
              for n in _kernels.SOURCES}
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0, ptxas=ptxas)
-    gate(len(_kernels.SOURCES) == len(KERNELS), f"built {sorted(_kernels.SOURCES)}, the path runs {KERNELS}")
+    gate(sorted(_kernels.SOURCES) == sorted(KERNELS + ("qconv_int8",)),
+         f"built {sorted(_kernels.SOURCES)}, the paths run {KERNELS + QKERNELS}")
     spills = {n: [ln for ln in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
               for n, lines in ptxas.items()}
     gate(not any(spills.values()), f"ptxas reports spills: {spills}")
@@ -2091,12 +2561,16 @@ def main(argv) -> int:
     state = params_from_jax(random_jax_params(GOLDEN["model_key"], GOLDEN["param_seed"]))
     paths = {"serve": phase_serve(state), "serve_pallas": phase_serve(state, "pallas"),
              "serve_color": phase_serve_color()}
+    schedule = int8_schedule(state)
+    qconv_numbers = phase_qconv_kernel(gen, peak, schedule)
+    paths.update(phase_serve_int8(state, gen))
     predict_root = os.path.join(str(_kernels.BUILD_DIR), "predict_smoke")
     shutil.rmtree(predict_root, ignore_errors=True)
     try:
         predict_paths, (videolist, warm) = phase_predict(predict_root)
         paths.update(predict_paths)
         phase_timing_predict(predict_root, videolist, warm)
+        paths.update(phase_predict_int8(predict_root, videolist, len(schedule)))
     finally:
         shutil.rmtree(predict_root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2126,7 +2600,7 @@ def main(argv) -> int:
         shutil.rmtree(zoo_root, ignore_errors=True)
     emit("zoo", wall_s=time.perf_counter() - t_zoo)
     torch.cuda.empty_cache()
-    phase_timing(state, peak, main_err, adj_err, paths, gen, baseline)
+    phase_timing(state, peak, main_err, adj_err, paths, gen, qconv_numbers, baseline)
 
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

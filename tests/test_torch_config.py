@@ -1,7 +1,8 @@
 """vfi_tpu_torch.utils.config against vfi_tpu.utils.config on the CPU: both
 parsers have vfi_tpu's option set, defaults, types, choices and nargs, plus
 the port's --device; argfiles (`@file` with `#` comments) parse alike; the
-flags the port cannot honour yet raise NotImplementedError."""
+flags the port cannot honour yet raise NotImplementedError (--mesh_shape and
+WORLD_SIZE > 1; --quantize is ported)."""
 
 import argparse
 
@@ -47,13 +48,15 @@ def test_argfiles_parse_as_vfi_tpus(tmp_path, which, args):
     assert tconfig.TrainConfig.from_opt(got) == tconfig.TrainConfig(K=5, T=5, F=5)
 
 
-def test_unported_flags_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tconfig.parse_args(tconfig.build_test_parser(), TEST_ARGS + ["--quantize", "int8"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tconfig.parse_args(tconfig.build_test_parser(), TEST_ARGS + ["--quantize", "int8_dynamic"])
+def test_unported_flags_raise(monkeypatch):
+    for mode in ("int8", "int8_dynamic"):  # ported: int8 serving
+        assert tconfig.parse_args(tconfig.build_test_parser(), TEST_ARGS + ["--quantize", mode]).quantize == mode
     with pytest.raises(NotImplementedError, match="item 9"):
         tconfig.parse_args(tconfig.build_train_parser(), TRAIN_ARGS + ["--mesh_shape", "2"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tconfig.parse_args(tconfig.build_test_parser(), TEST_ARGS)
+    monkeypatch.delenv("WORLD_SIZE")
     opt = tconfig.parse_args(tconfig.build_test_parser(), TEST_ARGS + ["--quantize", "none", "--device", "cpu"],
                              allow_unknown=True)
     assert opt.quantize == "none" and opt.device == "cpu"

@@ -22,11 +22,23 @@ host memory without blocking, and a CUDA event marks the copy; the batch's
 PNGs are written once that event has passed, while later batches run.
 Depth 1 is the synchronous loop.  ``main`` returns the run's counts and
 times (clips, batches, loop, forward and host seconds).
+
+``--quantize int8`` / ``int8_dynamic`` serve the int8 convs of
+``nn/quant.py`` (static calibrated / per-call scales), as vfi_tpu's CLI
+does: static scales are calibrated on the first ``--calib_clips`` clips, from
+zero, at the serving dtype; then, unless ``--validate_quant 0``, the first
+clips (4 by default, at most one batch) go through the quantized model at the
+serving batch shape and through an unquantized float32 copy of the snapshot
+(TF32 off), and a PSNR drop against the ground truth beyond
+``--quant_tol_db`` (or, with ``--disjoint_clips``, an agreement under 30 dB)
+exits with ``validate_quant REFUSED`` unless ``--force_quant``.  The
+validation clips are among the calibration clips, as in vfi_tpu.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 from collections import deque
 
@@ -37,8 +49,9 @@ from ..api import resolve_device
 from ..data.datasets import ContiguousVideoClipDataset, DisjointVideoClipDataset, batch_iterator
 from ..data.prefetch import Prefetcher
 from ..models.registry import create_model
+from ..nn import quant
 from ..ops.image import BGR_LUMA, frames_from_uint8
-from ..ops.metrics import quantize_uint8
+from ..ops.metrics import psnr, quantize_uint8, ssim
 from ..train.environments import create_eval_environment
 from ..utils import checkpoint as ckpt
 from ..utils.config import TrainConfig, build_test_parser, listopt, parse_args
@@ -107,18 +120,33 @@ def _predict(opt) -> dict:
         )
     print(f"# testing videos = {len(ds)}")
 
-    model = create_model(opt.model_key)
+    validate_n = opt.validate_quant if opt.validate_quant is not None else (4 if opt.quantize != "none" else 0)
+    model_fp = None
+    if opt.quantize == "none":
+        model = create_model(opt.model_key)  # VFI_INT8, where set, as in vfi_tpu
+    else:  # --quantize decides, and the gate's reference model is float
+        saved_int8 = os.environ.pop("VFI_INT8", None)
+        try:
+            model = quant.quantize_convs(create_model(opt.model_key), static=opt.quantize == "int8")
+            if validate_n > 0:
+                model_fp = create_model(opt.model_key)
+        finally:
+            if saved_int8 is not None:
+                os.environ["VFI_INT8"] = saved_int8
     env = create_eval_environment(model, TrainConfig(K=opt.K, T=opt.T, F=opt.F))
     if env.needs_snapshot:
         # Snapshots hold the whole training state; serving needs the generator.
         payload, _ = ckpt.load_snapshot(os.path.join(opt.checkpoints_dir, opt.name), opt.snapshot_file_name)
         model.load_state_dict(payload["generator"])
+        if model_fp is not None:
+            model_fp.load_state_dict(payload["generator"])
         del payload
     model.to(device=device, dtype=dtype).eval()
 
     def host_normalize(u8: np.ndarray) -> np.ndarray:
         """uint8 BGR -> the dataset's float pipeline ([-1,1], gray if c_dim=1);
-        used under --device_normalize for the GT PNG writes."""
+        used under --device_normalize for the calibration and validation
+        clips' float copies and the GT PNG writes."""
         x = u8.astype(np.float32) / 255.0
         if opt.c_dim == 1:
             x = (x @ np.asarray(BGR_LUMA, np.float32))[..., None]
@@ -132,6 +160,26 @@ def _predict(opt) -> dict:
         t = torch.from_numpy(x).to(device)
         # --device_normalize: uint8 crossed the host->device boundary; normalize here
         return frames_from_uint8(t, opt.c_dim, dtype=dtype) if opt.device_normalize else t.to(dtype)
+
+    def context(clips: np.ndarray):
+        """The preceding and following frames of stacked clips."""
+        return clips[:, :K], (clips[:, K:] if opt.disjoint_clips else clips[:, K + T:])
+
+    if opt.quantize == "int8" and env.needs_snapshot:
+        # Static scales: the running max of each conv's |input| over the first
+        # clips, from zero, in the serving dtype (nn/quant.py).
+        n_cal = max(1, min(opt.calib_clips, len(ds)))
+        cal = np.stack([ds[i]["targets"] for i in range(n_cal)])
+        if opt.device_normalize:
+            cal = host_normalize(cal)
+        cp, cf = (torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype) for a in context(cal))
+        with quant.calibrate(model):
+            env.forward_test(T, cp, cf)
+        del cal, cp, cf
+        print(f"int8 activation scales calibrated on {n_cal} clips")
+    if model_fp is not None and env.needs_snapshot and len(ds) > 0:
+        _validate_quant(opt, ds, env, model_fp, device, validate_n, host_normalize, to_model, context)
+    del model_fp
 
     n_done = 0
     times = {"wait_data_s": 0.0, "write_s": 0.0, "wait_device_s": 0.0, "normalize_s": 0.0}
@@ -268,6 +316,61 @@ def _predict(opt) -> dict:
     print("predictions written to", opt.qual_result_root)
     return dict(clips=n_done, batches=n_batch, inflight=depth, loop_s=dt_loop, forward_s=forward_s,
                 trace=trace_path, **times)
+
+
+def _validate_quant(opt, ds, env, model_fp, device, validate_n, host_normalize, to_model, context) -> None:
+    """vfi_tpu's --validate_quant gate: the first clips through the quantized
+    model (padded to the serving batch) and through ``model_fp``, the
+    unquantized float32 model, with TF32 off; exits with ``validate_quant
+    REFUSED`` when the quantized predictions fall short, unless --force_quant."""
+    K, T = opt.K, opt.T
+    n_val = min(validate_n, len(ds), opt.batch_size)
+    val = np.stack([ds[i]["targets"] for i in range(n_val)])
+    val_f = host_normalize(val) if opt.device_normalize else val
+    vq = val
+    if n_val < opt.batch_size:
+        vq = np.concatenate([vq, np.repeat(vq[-1:], opt.batch_size - n_val, axis=0)])
+    pq, fq = (to_model(np.ascontiguousarray(a)) for a in context(vq))
+    pred_q = env.forward_test(T, pq, fq)["pred"][:n_val].float()
+    del pq, fq
+
+    env_fp = create_eval_environment(model_fp.to(device=device, dtype=torch.float32).eval(),
+                                     TrainConfig(K=K, T=T, F=opt.F))
+    pf, ff = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device) for a in context(val_f))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        pred_fp = env_fp.forward_test(T, pf, ff)["pred"].float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del env_fp, pf, ff
+
+    q_u8, fp_u8 = quantize_uint8(pred_q), quantize_uint8(pred_fp)
+    agree = float(psnr(q_u8, fp_u8, clamp=100.0).mean())
+    if opt.disjoint_clips:
+        print(f"validate_quant ({n_val} clips): quantized-vs-f32 prediction "
+              f"agreement {agree:.2f} dB (no GT middles for metric deltas)")
+        ok = agree >= 30.0
+        detail = f"agreement {agree:.2f} dB < 30 dB"
+    else:
+        gt_u8 = quantize_uint8(torch.from_numpy(np.ascontiguousarray(val_f[:, K:K + T], np.float32)).to(device))
+        psnr_q = float(psnr(q_u8, gt_u8, clamp=100.0).mean())
+        psnr_fp = float(psnr(fp_u8, gt_u8, clamp=100.0).mean())
+        ssim_q = float(ssim(q_u8, gt_u8).mean())
+        ssim_fp = float(ssim(fp_u8, gt_u8).mean())
+        print(f"validate_quant ({n_val} clips): PSNR f32 {psnr_fp:.3f} -> "
+              f"quantized {psnr_q:.3f} dB (delta {psnr_q - psnr_fp:+.3f}); "
+              f"SSIM {ssim_fp:.4f} -> {ssim_q:.4f} "
+              f"(delta {ssim_q - ssim_fp:+.4f}); agreement {agree:.2f} dB")
+        ok = psnr_q - psnr_fp >= -opt.quant_tol_db
+        detail = f"PSNR drop {psnr_fp - psnr_q:.3f} dB > tolerance {opt.quant_tol_db} dB"
+    if not ok and not opt.force_quant:
+        sys.exit(f"validate_quant REFUSED this checkpoint for {opt.quantize} "
+                 f"serving: {detail}. Re-run with --force_quant to override, "
+                 f"--quant_tol_db to widen the gate, or --validate_quant 0 "
+                 f"to skip validation.")
+    if not ok:
+        print(f"validate_quant FAILED ({detail}) — proceeding (--force_quant)")
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ import json
 import os
 from typing import Any, Dict, Union
 
+from ..nn.quant import quantize_convs
 from .fill_in import (BidirectionalSimpleAverageFillInModel, BidirectionalTimeWeightedAverageFillInModel,
                       MCNetFillInModel, TAIFillInModel, TimeWeightedPFFillInModel, TWIFillInModel)
 from .legacy_sct import SCTSkipConFillInModel, SCTSuperSkipConFillInModel
@@ -97,6 +98,15 @@ def model_config(model: ModelSpec) -> Dict[str, Any]:
 
 
 def create_model(model: ModelSpec):
-    """Build a model (on the CPU, xavier-initialised) from a key or a spec."""
+    """Build a model (on the CPU, xavier-initialised) from a key or a spec.
+
+    ``VFI_INT8``, read here as vfi_tpu's ``Conv`` helper reads it, makes every
+    shared conv an int8 ``nn.quant.QConv``: ``1`` with dynamic scales, ``2``
+    with static ones (calibrated by ``nn.quant.calibrate``); anything else
+    leaves the convs float.  The state_dict is the same either way."""
     cfg = model_config(model)
-    return _CLASSES[cfg["class"]](*cfg.get("args", []), **cfg.get("kwargs", {}))
+    m = _CLASSES[cfg["class"]](*cfg.get("args", []), **cfg.get("kwargs", {}))
+    mode = os.environ.get("VFI_INT8", "0")
+    if mode in ("1", "2"):
+        quantize_convs(m, static=mode == "2")
+    return m

@@ -27,7 +27,10 @@ SOURCES = {
     "sepconv_fwd_mxu": "sepconv_fwd_mxu.cu",
     "sepconv_bwd_vh": "sepconv_bwd_vh.cu",
     "sepconv_bwd_x": "sepconv_bwd_x.cu",
+    "qconv_int8": "qconv_int8.cu",
 }
+# Headers hashed into every library's name, so that an edit rebuilds it
+# (qconv_int8.cu includes none of them).
 HEADERS = ("sepconv_common.cuh", "sepconv_mma.cuh")
 
 # The sepconv kernels are instantiated for 1..4 channels (one f32 accumulator
@@ -128,3 +131,28 @@ def launch(name: str, tensors, B: int, H: int, W: int, C: int, ks: int) -> None:
     rc = fn(*(t.data_ptr() for t in tensors), *strides, B, H, W, C, ks, _DTYPE_CODE[tensors[0].dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({lib.sepconv_error_string(rc).decode()})")
+
+
+# Argument types of the int8 conv library's two C entries
+# (csrc/qconv_int8.cu): pointers, 64-bit strides, ints, the stream last.
+_QCONV_ARGS = {
+    "quantize_int8": ["p"] * 3 + ["i64"] * 4 + ["i"] * 6 + ["p"],
+    "qconv_int8": ["p"] * 5 + ["i"] * 7 + ["p"],
+}
+
+
+def qconv_launch(entry: str, *args) -> None:
+    """Call ``entry`` of the int8 conv library (``quantize_int8`` or
+    ``qconv_int8``; pointers and sizes already checked by the wrapper in
+    ``ops/qconv.py``) on the current stream; raises on a non-zero CUDA error."""
+    lib = _load("qconv_int8")
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        kinds = {"p": ctypes.c_void_p, "i64": ctypes.c_int64, "i": ctypes.c_int}
+        fn.argtypes = [kinds[k] for k in _QCONV_ARGS[entry]]
+        fn.restype = ctypes.c_int
+        lib.qconv_error_string.argtypes = [ctypes.c_int]
+        lib.qconv_error_string.restype = ctypes.c_char_p
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({lib.qconv_error_string(rc).decode()})")

@@ -5,10 +5,9 @@ Flag names, defaults and semantics are vfi_tpu's (themselves the reference's
 src/options/options.py:6-209), with one addition: ``--device`` (default
 ``cuda``), the port's explicit device, where vfi_tpu reads ``JAX_PLATFORMS``.
 Flags the port cannot honour yet raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item, never silently ignored: ``--quantize`` other than
-``none`` (item 10), ``--mesh_shape`` (item 9), and a launch of several
-processes under ``torch.distributed`` (``WORLD_SIZE`` > 1, item 9; vfi_tpu's
-multi-host branch).  Option files compose as
+``ROADMAP.md`` item, never silently ignored: ``--mesh_shape`` (item 9), and
+a launch of several processes under ``torch.distributed`` (``WORLD_SIZE`` >
+1, item 9; vfi_tpu's multi-host branch).  Option files compose as
 vfi_tpu's do, through argparse's ``@file`` syntax with '#'-comment stripping:
 
     python -m vfi_tpu_torch.cli.predict @exp_args/default_args/KTH/test_5.txt @exp_args/extra_args/KTH/bi-TAI.txt
@@ -175,10 +174,10 @@ def build_test_parser() -> ArgFileParser:
                    help="Inference dtype; float32 runs with TF32 off")
     g.add_argument("--quantize", type=str, default="none",
                    choices=["none", "int8", "int8_dynamic"],
-                   help="int8 conv serving mode: 'int8' = static calibrated "
-                        "scales, 'int8_dynamic' = per-batch scales (not ported "
-                        "yet: ROADMAP.md queue 1 item 10; any value but 'none' "
-                        "raises)")
+                   help="int8 conv serving mode (nn/quant.py): 'int8' = static "
+                        "calibrated scales (calibrated on --calib_clips clips), "
+                        "'int8_dynamic' = per-call scales. Numerics change; "
+                        "validate per-checkpoint via compute_quant_results.")
     g.add_argument("--calib_clips", type=int, default=8,
                    help="clips used to calibrate --quantize int8 activation scales")
     g.add_argument("--validate_quant", type=int, default=None, metavar="N",
@@ -219,9 +218,6 @@ def normalize_sizes(opt) -> None:
 
 def refuse_unported(opt) -> None:
     """Raise ``NotImplementedError`` for a flag whose feature is not ported yet."""
-    if getattr(opt, "quantize", "none") != "none":
-        raise NotImplementedError(f"--quantize {opt.quantize}: int8 serving is not ported yet "
-                                  "(ROADMAP.md queue 1 item 10)")
     if getattr(opt, "mesh_shape", None) is not None:
         raise NotImplementedError("--mesh_shape: data parallelism over several GPUs is not ported yet "
                                   "(ROADMAP.md queue 1 item 9)")

@@ -8,7 +8,12 @@ GroupNorm's ``scale`` is its ``weight`` (the only 1-D weights); biases go as
 they are.
 The discriminator's ``"sn"`` collection maps to its ``u`` buffers:
 ``("conv0", "sn", "u")`` is ``conv0.sn.u``.  ``params_to_jax`` and
-``disc_variables_to_jax`` go back, to nested numpy dicts.
+``disc_variables_to_jax`` go back, to nested numpy dicts.  The int8 mode's
+``"quant"`` collection maps the same way to the ``act_amax`` of the static
+``QConv`` modules (``quant_from_jax``, for ``nn.quant.load_act_amax``):
+``("mcnet", "content_enc", "c1a", "act_amax")`` is
+``mcnet.content_enc.c1a.act_amax``.  Weights need nothing new, since the int8
+mode keeps the float params.
 
 Adam state: optax's ``ScaleByAdamState(count, mu, nu)`` is torch's
 per-parameter ``step`` (every parameter at ``count``), ``exp_avg`` and
@@ -67,6 +72,17 @@ def disc_variables_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Ten
     state = params_from_jax(variables["params"])
     for path, a in _flatten(variables.get("sn", {})).items():
         state[".".join(path)] = torch.from_numpy(np.array(a, np.float32, order="C"))
+    return state
+
+
+def quant_from_jax(quant: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """vfi_tpu's ``"quant"`` collection (``{..: {"act_amax": scalar}}``) ->
+    ``{"<module path>.act_amax": float32 scalar}`` (CPU) for ``nn.quant.load_act_amax``."""
+    state = {}
+    for path, a in _flatten(quant).items():
+        if path[-1] != "act_amax":
+            raise KeyError(f"unexpected leaf {'/'.join(path)} in a \"quant\" collection")
+        state[".".join(path)] = torch.tensor(float(np.asarray(a, np.float32)), dtype=torch.float32)
     return state
 
 
