@@ -97,9 +97,9 @@ Phases, one JSON line each:
                    clips of 15 frames, 16 for each validation set at 15, 20
                    and 19 frames) through ``vfi_tpu_torch.cli.train`` from a
                    port snapshot at updates=0 of the seed-0 weights: bf16
-                   ``--device_normalize`` ``--sample_KTF`` B=8, 30 iterations
+                   ``--device_normalize`` ``--sample_KTF`` B=8, 20 iterations
                    (snapshots every 10, validation every 15), then a resume
-                   to 40; 40 finite ``iter`` events, resumes at 0 and 30, 6
+                   to 30; 30 finite ``iter`` events, resumes at 0 and 20, 6
                    ``val`` events, a ``best`` one, the snapshots, and the
                    launches of the run's own schedule (2+2+2 per G update, 2
                    banded per validation or visualisation forward, 0
@@ -111,12 +111,36 @@ Phases, one JSON line each:
                    same two iterations without it (the same launches, step-1
                    terms within rel 1e-3, peak memory of each).
  14. timing_train_cli — the train CLI at B=8 bf16 ``--device_normalize`` from
-                   a fresh init, 10 warm-up and 50 timed iterations at
+                   a fresh init, 10 warm-up and 30 timed iterations at
                    ``--print_freq 10``, at fixed K=T=F=5 and under
                    ``--sample_KTF``: ms/it (median of the print windows after
                    the first) beside ``train``'s ms per step, the host's
                    seconds (prefetcher, copy and normalise, step dispatch,
-                   sync at print), one validation sweep and one snapshot save.
+                   sync at print), one validation sweep and one snapshot
+                   save (at fixed K, T, F).
+ 14a. ddp_train — data parallelism: the train CLI launched by torchrun as
+                   rank processes of this script (``--rank_worker``; the card's
+                   compute mode printed first).  One rank over NCCL (f32 B=2,
+                   3 iterations in order) against the run without a launch:
+                   terms within rel 1e-6.  Two ranks over gloo sharing cuda:0:
+                   f32 at local B=1 in order against the one-process B=2 run
+                   (rel 1e-3, iterations 1-3); bf16 ``--device_normalize
+                   --sample_KTF`` at local B=4, 20 iterations (snapshots and
+                   validation every 10, on 15 clips: shards of 8 and 7) and a
+                   resume to 30: finite terms, the same (K, T, F) on both
+                   ranks, final states bit-identical (sha256), snapshots and
+                   TensorBoard files from rank 0 alone, 15 gathered rows per
+                   sweep, both ranks resuming at 20, each rank's launches
+                   from its own schedule; ms/it per rank and the bytes of
+                   each gradient all-reduce.
+ 14b. ddp_predict — the predict CLI as two ranks sharing cuda:0, in the same
+                   launch, on ``predict``'s snapshot and clips: bf16 B=64 on
+                   130 clips (65 a rank, one padded batch each) writes the
+                   one-process tree; f32 on 16 clips at B=8 within 1 uint8
+                   level of the one-process PNGs; ``--quantize int8`` on 16
+                   clips: the same scales (sha256) and gate verdict on both
+                   ranks, pred_middle at uint8 PSNR >= 45 dB of the
+                   one-process int8 run; launches per rank.
  15-21. the model zoo (Super SloMo, SCT), none of which runs sepconv: each
                    path gates 0 launches of every kernel; ``zoo`` prints the
                    seven phases' wall seconds.
@@ -126,7 +150,7 @@ Phases, one JSON line each:
                    >= 45 dB at 131072 points of pred.
      slomo_predict — SloMo served by ``cli.predict`` at UCF-101's test
                    argfiles (K=4, T=5, F=4, 240x320 padded to 256x320, B=16)
-                   from a port snapshot, 32 synthetic 13-frame clips, bf16
+                   from a port snapshot, 16 synthetic 13-frame clips, bf16
                    ``--device_normalize``, twice: every PNG written at
                    240x320, finite metrics from ``compute_quant_results``,
                    middle frames/s of the loop and of the forward.
@@ -169,6 +193,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import math
@@ -483,8 +508,11 @@ def check_slomo_train_golden(device, vgg_path: str, cfg=SLOMO_TRAIN_GOLDEN) -> d
     return report
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw, "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def gate(ok: bool, what: str) -> None:
@@ -1404,8 +1432,9 @@ def stage_launches(record: dict):
 
     def counted_validate(*args, **kwargs):
         before = _launch_counts()
-        validate(*args, **kwargs)
+        verdict = validate(*args, **kwargs)
         record["gate"] = {k: n - before[k] for k, n in _launch_counts().items()}
+        return verdict
 
     quant.calibrate, predict_cli._validate_quant = counted_calibrate, counted_validate
     try:
@@ -1437,7 +1466,6 @@ def phase_predict_int8(root: str, videolist: str, per_forward: int) -> dict:
                                                       ["--device_normalize", "--quantize", mode]))
         paths[path] = launches = _launch_counts()
         pngs = _pngs(qual)
-        shutil.rmtree(qual)
         batches = -(-clips // batch)
         want = {"calibration": {"qconv_int8": per_forward if n_cal else 0, "quantize_int8": per_forward if n_cal else 0,
                                 "sepconv_fwd_mxu": 2 if n_cal else 0},
@@ -1711,8 +1739,8 @@ def _cli_forwards(stats: dict, iters: int, val_events: int) -> int:
 
 def phase_train_cli(root: str, lists: dict) -> dict:
     """TAI_gray at the KTH configuration through ``vfi_tpu_torch.cli.train``:
-    the KTH run (bf16, --device_normalize, --sample_KTF, B=8: 30 iterations,
-    then a resume to 40), an f32 run against ``TAIEnvironment.train_step``
+    the KTH run (bf16, --device_normalize, --sample_KTF, B=8: 20 iterations,
+    then a resume to 30), an f32 run against ``TAIEnvironment.train_step``
     driven directly, the direct kernel's route, and --remat against the same
     run without it.  Returns the launches of each of these paths."""
     c = TRAIN_CLI
@@ -1727,12 +1755,12 @@ def phase_train_cli(root: str, lists: dict) -> dict:
     paths = {}
     bf16 = ("--train_dtype", "bfloat16", "--device_normalize", "--print_freq", "1")
 
-    # The KTH run: snapshots every 10, validation every 15, resumed at 30.
+    # The KTH run: snapshots every 10, validation every 15, resumed at 20.
     _start_snapshot(root, "kth")
     freq = ("--save_latest_freq", "10", "--validate_freq", "15")
     _reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    stats = [run_train(_train_cli_args(root, "kth", lists, *bf16, *freq, "--max_iter", str(n)))[0] for n in (30, 40)]
+    stats = [run_train(_train_cli_args(root, "kth", lists, *bf16, *freq, "--max_iter", str(n)))[0] for n in (20, 30)]
     paths["train_cli"] = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
     iters = _events(root, "kth", "iter")
@@ -1758,13 +1786,13 @@ def phase_train_cli(root: str, lists: dict) -> dict:
          last_terms={k: iters[-1][k] for k in TERM_NAMES})
     print(f"train_cli: TensorBoard writer {'present' if stats[0]['tensorboard'] else 'absent'} on this machine, "
           f"so {vis} visualisation forwards", flush=True)
-    gate([e["iter"] for e in iters] == list(range(1, 41)), f"train_cli logged iterations {[e['iter'] for e in iters]}")
+    gate([e["iter"] for e in iters] == list(range(1, 31)), f"train_cli logged iterations {[e['iter'] for e in iters]}")
     gate(finite, "train_cli: non-finite loss terms")
-    gate(resumes == [0, 30], f"train_cli resume events at {resumes}, want [0, 30]")
+    gate(resumes == [0, 20], f"train_cli resume events at {resumes}, want [0, 20]")
     gate(len(vals) == 6 and bests, f"train_cli: {len(vals)} val events, best at {bests}")
     gate({"model_latest.ckpt", "model_00000010.ckpt", "model_00000020.ckpt", "model_00000030.ckpt",
-          "model_00000040.ckpt", "model_best.ckpt"} <= set(snapshots), f"train_cli snapshots {snapshots}")
-    gate(counters["updates"] == 40, f"model_latest.ckpt at updates {counters['updates']}")
+          "model_best.ckpt"} <= set(snapshots), f"train_cli snapshots {snapshots}")
+    gate(counters["updates"] == 30, f"model_latest.ckpt at updates {counters['updates']}")
     gate(len(set(ktf)) > 1, "train_cli: --sample_KTF sampled one (K, T, F)")
     _gate_launches("train_cli", paths["train_cli"], want)
     shutil.rmtree(os.path.join(root, "ckpt", "kth"))  # 493 MB a snapshot at TAI_gray
@@ -1843,12 +1871,13 @@ def phase_train_cli(root: str, lists: dict) -> dict:
 
 def phase_timing_train_cli(root: str, lists: dict, train_ms: float) -> None:
     """The train CLI timed: TAI_gray B=8 bf16 --device_normalize from a fresh
-    init, 10 warm-up and 50 timed iterations at --print_freq 10, at fixed
+    init, 10 warm-up and 30 timed iterations at --print_freq 10, at fixed
     K=T=F=5 and under --sample_KTF.  ms/it is the median of the print windows
     after the first, beside the ``train`` phase's ms per step (the step alone
     on one fixed batch); the host's seconds: waiting for the prefetcher,
     copying and normalising, dispatching the steps, the sync at each print;
-    one validation sweep and one snapshot save at iteration 60; where a
+    at fixed K, T, F one validation sweep and one snapshot save at iteration
+    40; where a
     TensorBoard writer exists, the seconds of the train_vis grids (left out
     of ms/it, as snapshots and validation are).  Two more runs at fixed
     K, T, F split the loop's cost: without a TensorBoard writer, and without
@@ -1862,9 +1891,9 @@ def phase_timing_train_cli(root: str, lists: dict, train_ms: float) -> None:
         next(batches)
     emit("timing_train_cli_decode", clips="numpy .npy", batch=c["batch"], device_normalize=True,
          host_ms_per_batch=(time.perf_counter() - t0) / 8 * 1e3)
-    every = ("--save_latest_freq", "60", "--validate_freq", "60")
+    every = ("--save_latest_freq", "40", "--validate_freq", "40")
     never = ("--save_latest_freq", "1000", "--validate_freq", "1000")
-    modes = (("fixed", KTH_FIXED_ARGS, every, False), ("sample_KTF", KTH_ARGS, every, False),
+    modes = (("fixed", KTH_FIXED_ARGS, every, False), ("sample_KTF", KTH_ARGS, never, False),
              ("fixed_no_writer", KTH_FIXED_ARGS, never, True),
              ("fixed_no_writer_device_cache", KTH_FIXED_ARGS, never + ("--device_cache", "8"), True))
     for mode, base, extra, blind in modes:
@@ -1873,13 +1902,13 @@ def phase_timing_train_cli(root: str, lists: dict, train_ms: float) -> None:
         torch.cuda.reset_peak_memory_stats()
         with uncounted(), (no_tensorboard() if blind else contextlib.nullcontext()):
             stats, _ = run_train(_train_cli_args(
-                root, name, lists, "--train_dtype", "bfloat16", "--device_normalize", "--max_iter", "60",
+                root, name, lists, "--train_dtype", "bfloat16", "--device_normalize", "--max_iter", "40",
                 "--print_freq", "10", *extra, base=base))
         windows = [e["ms_per_it"] for e in _events(root, name, "iter")]
         ms = float(np.median(windows[1:]))
         rng = np.random.RandomState(0)  # the CLI's --seed: its (K, T, F) draws
-        T_all = [c["T"]] * 60 if mode == "fixed" else [
-            (rng.randint(2, c["K"] + 1), rng.randint(1, c["T"] + 1), rng.randint(2, c["F"] + 1))[1] for _ in range(60)]
+        T_all = [c["T"]] * 40 if mode.startswith("fixed") else [
+            (rng.randint(2, c["K"] + 1), rng.randint(1, c["T"] + 1), rng.randint(2, c["F"] + 1))[1] for _ in range(40)]
         n = stats["iters"]
         emit("timing_train_cli", model=c["model_key"], mode=mode, dtype="bfloat16", batch=c["batch"],
              device_normalize=True, iters=n, ms_per_it=ms, iterations_per_s=1e3 / ms, ms_per_it_windows=windows,
@@ -1894,6 +1923,379 @@ def phase_timing_train_cli(root: str, lists: dict, train_ms: float) -> None:
              max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
 
 
+# Data parallelism: the train and predict CLIs launched by torchrun as rank
+# processes of this script (``--rank_worker``), which run each job's ``main``
+# in-process and record what the CLI's own output does not show per rank.
+DDP = dict(world=2, val_clips=15, batch=4, iters=20, resume_to=30, every=10, f32_iters=3, f32_batch=2)
+
+
+def _state_digest(state) -> str:
+    """sha256 of a training state's bytes: both networks' parameters and
+    buffers, both optimizers' state, the step and the random generator."""
+    h = hashlib.sha256()
+    tensors = [*state.generator.state_dict().values(), *state.discriminator.state_dict().values()]
+    for opt in (state.g_opt, state.d_opt):
+        for p in (q for g in opt.param_groups for q in g["params"]):
+            tensors += [opt.state[p][k] for k in sorted(opt.state[p])]
+    for t in tensors:
+        h.update(t.detach().reshape(-1).cpu().view(torch.uint8).numpy().tobytes())
+    h.update(str(state.step).encode())
+    if state.rng is not None:
+        h.update(state.rng.get_state().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_job(job: dict) -> dict:
+    """One CLI run of this rank: its stats and stdout, the kernel launches, the
+    (K, T, F) of every step, the snapshots this rank saved, the bytes of each
+    gradient all-reduce and the digest of the final training state."""
+    from vfi_tpu_torch.train import environments
+
+    record = {"name": job["name"], "ktf": [], "saves": [], "allreduce_bytes": []}
+    last = {}
+    make_env, save, allreduce = train_cli.create_training_environment, ckpt.save_snapshot, environments.allreduce_mean_
+
+    def recording_env(*args, **kwargs):
+        env = make_env(*args, **kwargs)
+        step = env.train_step
+
+        def train_step(state, K, T, F, targets):
+            record["ktf"].append([K, T, F])
+            last["state"] = state
+            return step(state, K, T, F, targets)
+
+        env.train_step = train_step
+        return env
+
+    def recording_save(save_dir, name, *args):
+        record["saves"].append(name)
+        return save(save_dir, name, *args)
+
+    def recording_allreduce(tensors, group):
+        record["allreduce_bytes"].append(sum(t.numel() * t.element_size() for t in tensors))
+        return allreduce(tensors, group)
+
+    train_cli.create_training_environment, ckpt.save_snapshot = recording_env, recording_save
+    environments.allreduce_mean_ = recording_allreduce
+    _reset_launch_counts()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            stats = (train_cli if job["cli"] == "train" else predict_cli).main(job["args"])
+    finally:
+        train_cli.create_training_environment, ckpt.save_snapshot = make_env, save
+        environments.allreduce_mean_ = allreduce
+    torch.cuda.synchronize()
+    record.update(stats=stats, stdout=out.getvalue(), launches=_launch_counts())
+    if "state" in last:
+        record["digest"] = _state_digest(last["state"])
+    return record
+
+
+def rank_worker(argv) -> int:
+    """``chip_smoke.py --rank_worker JOBS OUT [--nccl] [--deterministic]``
+    under torchrun: this rank runs the CLI jobs listed in the JSON file JOBS
+    and writes ``OUT/rank<RANK>.json``.  Jobs with ``"group": false`` run
+    first, in one process with no process group; then the first call of
+    ``parallel.init_distributed`` (the rank's own, on its card) sets up the
+    launch's group, which every other job's CLI uses.  With ``--nccl`` (a
+    launch of one rank, whose WORLD_SIZE=1 sets up nothing) the group is
+    NCCL's, made here.  ``--deterministic``: torch's deterministic algorithms
+    (with ``CUBLAS_WORKSPACE_CONFIG`` set by the launch), so that two runs of
+    one f32 program give the same bits."""
+    import torch.distributed as dist
+
+    from vfi_tpu_torch.parallel import mesh
+
+    jobs_path, out_dir = argv[0], argv[1]
+    local = int(os.environ["LOCAL_RANK"])  # ranks beyond the card count share card 0
+    device = torch.device("cuda", local if local < torch.cuda.device_count() else 0)
+    torch.cuda.set_device(device)
+    torch.use_deterministic_algorithms("--deterministic" in argv)
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    records = [_rank_job(job) for job in jobs if not job["group"]]
+    if "--nccl" in argv:
+        dist.init_process_group("nccl")  # WORLD_SIZE=1: init_distributed alone would set up nothing
+    groups = mesh.init_distributed(device)
+    try:
+        records += [_rank_job(job) for job in jobs if job["group"]]
+        records.append({"backend": dist.get_backend(), "world": mesh.world_size()})
+    finally:
+        mesh.shutdown(groups)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(records, f)
+    return 0
+
+
+def launch_ranks(root: str, tag: str, jobs: list, nproc: int, nccl: bool = False, deterministic: bool = False) -> list:
+    """Run ``jobs`` in ``nproc`` rank processes of this script under torchrun;
+    returns each rank's records.  A failed rank fails the run."""
+    jobs_path, out = os.path.join(root, f"{tag}_jobs.json"), os.path.join(root, f"{tag}_ranks")
+    os.makedirs(out, exist_ok=True)
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+           os.path.abspath(__file__), "--rank_worker", jobs_path, out, *(["--nccl"] if nccl else []),
+           *(["--deterministic"] if deterministic else [])]
+    env = {**os.environ, **({"CUBLAS_WORKSPACE_CONFIG": ":4096:8"} if deterministic else {})}
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO, env=env)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        print(r.stdout[-6000:], file=sys.stderr)
+        print(r.stderr[-10000:], file=sys.stderr)
+    gate(r.returncode == 0, f"{tag}: torchrun of {nproc} rank(s) exited with {r.returncode}")
+    ranks = []
+    for i in range(nproc):
+        with open(os.path.join(out, f"rank{i}.json")) as f:
+            ranks.append(json.load(f))
+    emit(f"{tag}_launch", ranks=nproc, wall_s=wall, backend=ranks[0][-1]["backend"], world=ranks[0][-1]["world"])
+    return [r[:-1] for r in ranks]
+
+
+def _job(name: str, cli: str, args: list, group: bool = True) -> dict:
+    return {"name": name, "cli": cli, "args": [str(a) for a in args], "group": group}
+
+
+def phase_ddp_train(root: str, lists: dict, card: str) -> tuple:
+    """TAI_gray at the KTH configuration through the train CLI as rank
+    processes: (a) one rank over NCCL, f32 B=2, 3 iterations in order,
+    against the same run without a launch (bit-equal or rel 1e-6); (b) two
+    ranks over gloo sharing cuda:0, f32 at local B=1 in order (each rank's
+    strided shard makes the one-process B=2 batches), against the
+    one-process run's terms (rel 1e-3); (c) two ranks in bf16
+    (--device_normalize --sample_KTF, local B=4) for 20 iterations with
+    snapshots and validation (15 clips, shards of 8 and 7) every 10, then a
+    resume to 30.  Returns the launches of each rank's paths and the jobs of
+    the two-rank launch (run with the predict jobs)."""
+    c, d = TRAIN_CLI, DDP
+    K, T, F = c["K"], c["T"], c["F"]
+    in_order = ("--train_dtype", "float32", "--serial_batches", "--no_backwards", "--no_flip", "--num_threads", "0",
+                "--print_freq", "1", "--save_latest_freq", "100", "--validate_freq", "100",
+                "--max_iter", str(d["f32_iters"]))
+    # (a) one rank over NCCL, and the reference: the same run without a
+    # launch's group, first, in the same process.  Both take torch's
+    # deterministic algorithms: without them two runs of this f32 program in
+    # one process are not bit-equal after the first update on the H100, and
+    # this gate asks for bit-equality or rel 1e-6.
+    for name in ("ddp_ref", "ddp_nccl"):
+        _start_snapshot(root, name)
+    jobs = [_job(name, "train", _train_cli_args(root, name, lists, *in_order, "--batch_size", d["f32_batch"],
+                                                base=KTH_FIXED_ARGS), group=name == "ddp_nccl")
+            for name in ("ddp_ref", "ddp_nccl")]
+    (ref_rec, nccl_rec), = launch_ranks(root, "ddp_train_nccl", jobs, 1, nccl=True, deterministic=True)
+    ref = _events(root, "ddp_ref", "iter")
+    gate(len(ref) == d["f32_iters"], f"ddp reference run logged {len(ref)} iterations")
+    got = _events(root, "ddp_nccl", "iter")
+    rels = [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in TERM_NAMES) for g, w in zip(got, ref)]
+    rel_nccl = max(rels)
+    exact = all(g[k] == w[k] for g, w in zip(got, ref) for k in TERM_NAMES)
+
+    # (b) two ranks in f32, (c) two ranks in bf16 and the resume: the jobs.
+    _start_snapshot(root, "ddp_f32")
+    val = {flag: _head(path, d["val_clips"], os.path.join(root, f"ddp{flag.replace('-', '_')}.txt"))
+           for flag, path in lists.items() if flag != "--train_video_list_path"}
+    lists15 = {"--train_video_list_path": lists["--train_video_list_path"], **val}
+    bf16 = ("--train_dtype", "bfloat16", "--device_normalize", "--print_freq", "1", "--save_latest_freq", d["every"],
+            "--validate_freq", d["every"], "--batch_size", d["batch"], "--device", "cuda:0")
+    jobs = [_job("f32", "train", _train_cli_args(root, "ddp_f32", lists, *in_order, "--batch_size",
+                                                 d["f32_batch"] // d["world"], "--device", "cuda:0",
+                                                 base=KTH_FIXED_ARGS)),
+            *(_job(f"bf16_{n}", "train", _train_cli_args(root, "ddp_bf16", lists15, *bf16, "--max_iter", n))
+              for n in (d["iters"], d["resume_to"]))]
+    emit("ddp_train_nccl", card=card, backend="nccl", ranks=1, dtype="float32", batch=d["f32_batch"],
+         terms_max_rel_vs_one_process=rel_nccl, terms_max_rel_by_iter=rels, terms_bit_equal=exact,
+         deterministic_algorithms=True, ms_per_it=nccl_rec["stats"]["ms_per_it"],
+         ref_ms_per_it=ref_rec["stats"]["ms_per_it"], launches=nccl_rec["launches"],
+         allreduce_bytes=sorted(set(nccl_rec["allreduce_bytes"])))
+    _gate_launches("ddp_train one NCCL rank", nccl_rec["launches"], _f32_launches(nccl_rec["stats"]))
+    _gate_launches("ddp_train reference", ref_rec["launches"], _f32_launches(ref_rec["stats"]))
+    gate(len(got) == d["f32_iters"] and rel_nccl <= 1e-6,
+         f"ddp_train one NCCL rank: terms off the run without a launch by rel {rel_nccl} > 1e-6")
+    return {"ddp_train_nccl_rank0": nccl_rec["launches"]}, jobs, ref
+
+
+def _f32_launches(stats: dict) -> dict:
+    """The launches of an f32 run of ``DDP["f32_iters"]`` iterations without validation."""
+    n = DDP["f32_iters"]
+    return {"sepconv_fwd_mxu": 2 * (n + _cli_forwards(stats, n, 0)), "sepconv_bwd_vh": 2 * n, "sepconv_bwd_x": 2 * n}
+
+
+def check_ddp_train(root: str, ranks: list, ref: list, card: str) -> dict:
+    """The gates of ``phase_ddp_train``'s two-rank jobs (``ranks``: each rank's
+    records in job order)."""
+    c, d = TRAIN_CLI, DDP
+    paths = {}
+    # (b) f32: the ranks' mean terms against the one-process run at twice the batch.
+    got = _events(root, "ddp_f32", "iter")
+    rels = [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in TERM_NAMES) for g, w in zip(got, ref)]
+    rel = max(rels)
+    f32 = [r[0] for r in ranks]
+    for i, rec in enumerate(f32):
+        paths[f"ddp_train_f32_rank{i}"] = rec["launches"]
+        _gate_launches(f"ddp_train f32 rank {i}", rec["launches"], _f32_launches(rec["stats"]))
+    emit("ddp_train_f32", card=card, backend="gloo", ranks=d["world"], device="cuda:0 (shared)", dtype="float32",
+         local_batch=d["f32_batch"] // d["world"], iters=len(got), terms_max_rel_vs_one_process_B2=rel,
+         terms_max_rel_by_iter=rels,
+         digests_equal=len({r["digest"] for r in f32}) == 1, launches=[r["launches"] for r in f32],
+         ms_per_it=[r["stats"]["ms_per_it"] for r in f32])
+    gate(len(got) == d["f32_iters"] and rel <= 1e-3, f"ddp_train f32: two ranks' terms off one process by rel {rel}")
+    gate(len({r["digest"] for r in f32}) == 1, "ddp_train f32: the ranks' states differ")
+
+    # (c) bf16, 20 iterations and a resume to 30.
+    iters = _events(root, "ddp_bf16", "iter")
+    vals = _events(root, "ddp_bf16", "val")
+    resumes = [e["iter"] for e in _events(root, "ddp_bf16", "resume")]
+    finite = all(math.isfinite(e[k]) for e in iters for k in TERM_NAMES)
+    runs = [[r[1], r[2]] for r in ranks]  # per rank: the first run, the resume
+    ktf = [[k for rec in rr for k in rec["ktf"]] for rr in runs]
+    digests = [[rec["digest"] for rec in rr] for rr in runs]
+    starts = [[rec["stats"]["updates"] - rec["stats"]["iters"] for rec in rr] for rr in runs]
+    saves = [[n for rec in rr for n in rec["saves"]] for rr in runs]
+    tb = sorted(os.listdir(os.path.join(root, "tb", "ddp_bf16")))
+    snapshots = sorted(os.listdir(os.path.join(root, "ckpt", "ddp_bf16")))
+    g_bytes, d_bytes = runs[0][0]["allreduce_bytes"][:2]
+    report = []
+    for i, rr in enumerate(runs):
+        launches = {k: sum(rec["launches"][k] for rec in rr) for k in COUNTED}
+        paths[f"ddp_train_rank{i}"] = launches
+        g_updates = sum(rec["stats"]["iters"] for rec in rr)
+        mine = len(range(i, d["val_clips"], d["world"]))
+        val_batches = sum(3 * len(rec["stats"]["val_s"]) * math.ceil(mine / d["batch"]) for rec in rr)
+        vis = sum(_cli_forwards(rec["stats"], rec["stats"]["iters"], 3 * len(rec["stats"]["val_s"])) for rec in rr)
+        want = {"sepconv_fwd_mxu": 2 * (g_updates + val_batches + vis), "sepconv_bwd_vh": 2 * g_updates,
+                "sepconv_bwd_x": 2 * g_updates}
+        report.append(dict(rank=i, launches=launches, want_launches=want, g_updates=g_updates, val_clips=mine,
+                           val_batches=val_batches, visualisation_forwards=vis, starts=starts[i], saves=len(saves[i]),
+                           tensorboard=[rec["stats"]["tensorboard"] for rec in rr],
+                           ms_per_it=[float(np.median(rec["stats"]["ms_per_it"][1:])) for rec in rr]))
+        _gate_launches(f"ddp_train rank {i}", launches, want)
+    emit("ddp_train", card=card, backend="gloo", ranks=d["world"], device="cuda:0 (shared)", dtype="bfloat16",
+         local_batch=d["batch"], global_batch=d["batch"] * d["world"], iters=len(iters), resumes=resumes,
+         val_videos=[e["videos"] for e in vals], finite_terms=finite, same_KTF=ktf[0] == ktf[1],
+         distinct_KTF=len({tuple(k) for k in ktf[0]}), digests_equal=[a == b for a, b in zip(*digests)],
+         tensorboard_files=len(tb), snapshots=snapshots, grad_allreduce_bytes_G=g_bytes,
+         grad_allreduce_bytes_D=d_bytes, per_rank=report)
+    gate([e["iter"] for e in iters] == list(range(1, d["resume_to"] + 1)),
+         f"ddp_train logged iterations {[e['iter'] for e in iters]} (one rank's log)")
+    gate(finite, "ddp_train: non-finite loss terms")
+    gate(ktf[0] == ktf[1] and len(ktf[0]) == d["resume_to"], "ddp_train: the ranks drew different (K, T, F)")
+    gate(len({tuple(k) for k in ktf[0]}) > 1, "ddp_train: --sample_KTF sampled one (K, T, F)")
+    gate(all(a == b for a, b in zip(*digests)), f"ddp_train: the ranks' final states differ: {digests}")
+    gate(starts == [[0, d["iters"]]] * d["world"] and resumes == [d["iters"]],
+         f"ddp_train: runs started at {starts}, resume events {resumes}")
+    gate(saves[1] == [] and len(saves[0]) >= 6, f"ddp_train: snapshots saved per rank {saves}")
+    gate(len(tb) == 2 * runs[0][0]["stats"]["tensorboard"] and not any(rec["stats"]["tensorboard"] for rec in runs[1]),
+         f"ddp_train: TensorBoard files {tb}; rank 1 made a writer")
+    gate(len(vals) == 9 and all(e["videos"] == d["val_clips"] for e in vals),
+         f"ddp_train: validation rows {[e['videos'] for e in vals]}, want {d['val_clips']} each")
+    gate({"model_latest.ckpt", f"model_{d['iters']:08d}.ckpt", f"model_{d['resume_to']:08d}.ckpt"} <= set(snapshots),
+         f"ddp_train snapshots {snapshots}")
+    shutil.rmtree(os.path.join(root, "ckpt", "ddp_bf16"))
+    return paths
+
+
+def ddp_predict_jobs(root: str, videolist: str) -> list:
+    """The predict CLI's jobs for two ranks sharing cuda:0, on ``phase_predict``'s
+    snapshot and clips."""
+    cfg = PREDICT
+    lst16 = os.path.join(root, "list16.txt")
+    share = ("--device", "cuda:0")
+    return [_job("bf16", "predict", _predict_args(cfg, root, videolist, os.path.join(root, "ddp_qual_bf16"),
+                                                  "bfloat16", cfg["batch"], ["--device_normalize", *share])),
+            _job("f32", "predict", _predict_args(cfg, root, lst16, os.path.join(root, "ddp_qual_f32"), "float32",
+                                                 cfg["f32_batch"], share)),
+            _job("int8", "predict", _predict_args(cfg, root, lst16, os.path.join(root, "ddp_qual_int8"), "bfloat16",
+                                                  cfg["f32_batch"], ["--device_normalize", "--quantize", "int8",
+                                                                     *share]))]
+
+
+def check_ddp_predict(root: str, ranks: list, per_forward: int, card: str) -> dict:
+    """The gates of the predict jobs of two ranks: the bf16 trees together are
+    the one-process tree; f32 PNGs within 1 uint8 level of the one-process
+    run's; int8: the same scales and gate verdict on both ranks, pred_middle
+    at uint8 PSNR >= 45 dB of the one-process int8 run; launches per rank."""
+    cfg, d = PREDICT, DDP
+    K, T = cfg["K"], cfg["T"]
+    paths, res = {}, {}
+    bf16, f32, int8 = ([r[j] for r in ranks] for j in range(3))
+    tree = _pngs(os.path.join(root, "ddp_qual_bf16"))
+    want_tree = _pngs(os.path.join(root, "qual_bf16"))
+    for mode, recs, clips, batch in (("bf16", bf16, cfg["clips"], cfg["batch"]),
+                                     ("f32", f32, cfg["f32_clips"], cfg["f32_batch"])):
+        for i, rec in enumerate(recs):
+            mine = len(range(i, clips, d["world"]))
+            batches = math.ceil(mine / batch)
+            paths[f"ddp_predict_{mode}_rank{i}"] = rec["launches"]
+            _gate_launches(f"ddp_predict {mode} rank {i}", rec["launches"], {"sepconv_fwd_mxu": 2 * batches})
+            gate(rec["stats"]["clips"] == mine and f"[rank {i}] processed {mine}/{mine} clips" in rec["stdout"],
+                 f"ddp_predict {mode} rank {i} predicted {rec['stats']['clips']} clips, want {mine}")
+            pads = rec["stdout"].count(f"[rank {i}] padded final batch")
+            gate(pads == (1 if mine % batch else 0), f"ddp_predict {mode} rank {i}: {pads} padding lines")
+    gate(tree == want_tree, f"ddp_predict bf16: the ranks' trees hold {len(tree)} folders, one process "
+                            f"{len(want_tree)}, or other files")
+    gate(f"all {d['world']} ranks: {cfg['clips']} of {cfg['clips']} clips predicted" in bf16[0]["stdout"],
+         "ddp_predict bf16: rank 0 printed no total")
+    worst = 0
+    for i in range(cfg["f32_clips"]):
+        label = f"clip{i}.npy_1-{cfg['frames']}"
+        for t in range(T):
+            name = f"pred_middle_{K + t:04d}.png"
+            a, b = (read_png(os.path.join(root, q, label, name)) for q in ("ddp_qual_f32", "qual_f32"))
+            worst = max(worst, int(np.abs(a.astype(np.int16) - b).max()))
+    gate(worst <= 1, f"ddp_predict f32: PNGs off the one-process run's by {worst} uint8 levels")
+
+    digests = [re.findall(r"int8 activation scales sha256 (\w+)", rec["stdout"]) for rec in int8]
+    verdicts = [re.findall(r"validate_quant verdict of rank 0: (\w+)", rec["stdout"]) for rec in int8]
+    psnrs = []
+    for i in range(cfg["f32_clips"]):
+        label = f"clip{i}.npy_1-{cfg['frames']}"
+        for t in range(T):
+            name = f"pred_middle_{K + t:04d}.png"
+            psnrs.append(u8_psnr(*(read_png(os.path.join(root, q, label, name))
+                                   for q in ("ddp_qual_int8", "qual_predict_int8"))))
+    for i, rec in enumerate(int8):
+        paths[f"ddp_predict_int8_rank{i}"] = rec["launches"]
+        cal = {"qconv_int8": per_forward, "quantize_int8": per_forward, "sepconv_fwd_mxu": 2} if i == 0 else {}
+        gate_q = {"qconv_int8": per_forward, "quantize_int8": per_forward, "sepconv_fwd_mxu": 4} if i == 0 else {}
+        want = {k: cal.get(k, 0) + gate_q.get(k, 0) + (per_forward if k in QKERNELS else 0) for k in COUNTED}
+        want["sepconv_fwd_mxu"] += 2
+        _gate_launches(f"ddp_predict int8 rank {i}", rec["launches"], want)
+    res.update(f32_vs_one_process_max_levels=worst, int8_digests=digests, int8_verdicts=verdicts,
+               int8_vs_one_process_u8_psnr_db_min=min(psnrs), folders=len(tree),
+               clips_per_rank={m: [r["stats"]["clips"] for r in recs] for m, recs in
+                               (("bf16", bf16), ("f32", f32), ("int8", int8))},
+               loop_s_per_rank={m: [r["stats"]["loop_s"] for r in recs] for m, recs in
+                                (("bf16", bf16), ("f32", f32), ("int8", int8))},
+               launches=dict(paths))
+    emit("ddp_predict", card=card, backend="gloo", ranks=d["world"], device="cuda:0 (shared)", **res)
+    gate(len(set(sum(digests, []))) == 1 and all(len(x) == 1 for x in digests),
+         f"ddp_predict int8: scale digests {digests}")
+    gate(verdicts == [["passed"]] * d["world"], f"ddp_predict int8: gate verdicts {verdicts}")
+    gate(min(psnrs) >= 45.0, f"ddp_predict int8: pred_middle at {min(psnrs)} dB of the one-process int8 run < 45")
+    return paths
+
+
+def phase_ddp(train_root: str, lists: dict, predict_root: str, videolist: str, per_forward: int, card: str) -> dict:
+    """``ddp_train`` and ``ddp_predict``: one launch of one NCCL rank, one
+    launch of two gloo ranks sharing cuda:0 for the train and predict jobs."""
+    t0 = time.perf_counter()
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f"ddp: compute mode {mode!r} (an exclusive mode refuses two ranks on one card)", flush=True)
+    torch.cuda.empty_cache()
+    paths, train_jobs, ref = phase_ddp_train(train_root, lists, card)
+    torch.cuda.empty_cache()
+    ranks = launch_ranks(train_root, "ddp", train_jobs + ddp_predict_jobs(predict_root, videolist), DDP["world"])
+    paths.update(check_ddp_train(train_root, [r[:3] for r in ranks], ref, card))
+    paths.update(check_ddp_predict(predict_root, [r[3:] for r in ranks], per_forward, card))
+    emit("ddp", wall_s=time.perf_counter() - t0)
+    return paths
+
+
 # The model zoo: Super SloMo at the UCF-101 configuration and the SCT family at
 # KTH's.  Neither runs sepconv: every zoo phase gates 0 launches of each kernel.
 UCF_TEST_ARGS = ("@" + os.path.join(REPO, "exp_args", "default_args", "UCF-101", "test_5.txt"),
@@ -1903,7 +2305,7 @@ UCF_TRAIN_ARGS = ("@" + os.path.join(REPO, "exp_args", "default_args", "UCF-101"
 KTH_TRAIN_ARGS = ("@" + os.path.join(REPO, "exp_args", "default_args", "KTH", "train.txt"),)
 # The predict CLI at UCF-101's test setting: 240x320 clips padded by 16 rows.
 SLOMO_PREDICT = dict(model_key="SloMoFillInModel_color", name="ucf-101_SuperSloMo", param_seed=0, clip_seed=30,
-                     clips=32, frames=13, H=240, W=320, pad=16, K=4, T=5, F=4, batch=16)
+                     clips=16, frames=13, H=240, W=320, pad=16, K=4, T=5, F=4, batch=16)
 # The train CLI at UCF-101's train setting (160x192 crops of clips at that size).
 SLOMO_TRAIN = dict(model_key="SloMoFillInModel_color", clip_seed=40, vgg_seed=14, H=160, W=192, K=4, T=3, F=4,
                    alt_T=5, alt_K=6, alt_F=6, train_clips=32, val_clips=8, batch=8, lr=1e-4, lr_decay_count=15,
@@ -1953,7 +2355,7 @@ def phase_slomo_golden() -> dict:
 def phase_slomo_predict(root: str) -> dict:
     """SloMoFillInModel_color served by the predict CLI at UCF-101's test
     setting (the argfiles: K=4, T=5, F=4, 240x320 padded to 256x320, B=16) from
-    a port snapshot of ``random_jax_params(..., 0)``, on 32 synthetic clips of
+    a port snapshot of ``random_jax_params(..., 0)``, on 16 synthetic clips of
     13 frames, bf16 ``--device_normalize``: run twice (the first warms up),
     every PNG written, the metrics finite through ``compute_quant_results``."""
     c = SLOMO_PREDICT
@@ -2564,32 +2966,32 @@ def main(argv) -> int:
     schedule = int8_schedule(state)
     qconv_numbers = phase_qconv_kernel(gen, peak, schedule)
     paths.update(phase_serve_int8(state, gen))
+    # The predict phases' snapshot, clips and trees stay for the ddp phases.
     predict_root = os.path.join(str(_kernels.BUILD_DIR), "predict_smoke")
-    shutil.rmtree(predict_root, ignore_errors=True)
+    train_cli_root = os.path.join(str(_kernels.BUILD_DIR), "train_cli_smoke")
+    for root in (predict_root, train_cli_root):
+        shutil.rmtree(root, ignore_errors=True)
     try:
         predict_paths, (videolist, warm) = phase_predict(predict_root)
         paths.update(predict_paths)
         phase_timing_predict(predict_root, videolist, warm)
         paths.update(phase_predict_int8(predict_root, videolist, len(schedule)))
-    finally:
-        shutil.rmtree(predict_root, ignore_errors=True)
-    torch.cuda.empty_cache()
-    env, tstate, targets = phase_train_golden()
-    phase_train_kernel_vs_plain(env, tstate, targets)
-    del env, tstate, targets
-    torch.cuda.empty_cache()
-    paths["train_pallas"] = phase_train_pallas()
-    torch.cuda.empty_cache()
-    paths["train"], train_ms = phase_train(gen)
-    paths["train_color"] = phase_train_color(gen)
-    train_cli_root = os.path.join(str(_kernels.BUILD_DIR), "train_cli_smoke")
-    shutil.rmtree(train_cli_root, ignore_errors=True)
-    try:
+        torch.cuda.empty_cache()
+        env, tstate, targets = phase_train_golden()
+        phase_train_kernel_vs_plain(env, tstate, targets)
+        del env, tstate, targets
+        torch.cuda.empty_cache()
+        paths["train_pallas"] = phase_train_pallas()
+        torch.cuda.empty_cache()
+        paths["train"], train_ms = phase_train(gen)
+        paths["train_color"] = phase_train_color(gen)
         lists = _train_cli_lists(train_cli_root)
         paths.update(phase_train_cli(train_cli_root, lists))
         phase_timing_train_cli(train_cli_root, lists, train_ms)
+        paths.update(phase_ddp(train_cli_root, lists, predict_root, videolist, len(schedule), smi[0] if smi else ""))
     finally:
-        shutil.rmtree(train_cli_root, ignore_errors=True)
+        for root in (predict_root, train_cli_root):
+            shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     zoo_root = os.path.join(str(_kernels.BUILD_DIR), "zoo_smoke")
     shutil.rmtree(zoo_root, ignore_errors=True)
@@ -2609,4 +3011,6 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank_worker"]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

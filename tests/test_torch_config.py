@@ -1,8 +1,7 @@
 """vfi_tpu_torch.utils.config against vfi_tpu.utils.config on the CPU: both
 parsers have vfi_tpu's option set, defaults, types, choices and nargs, plus
-the port's --device; argfiles (`@file` with `#` comments) parse alike; the
-flags the port cannot honour yet raise NotImplementedError (--mesh_shape and
-WORLD_SIZE > 1; --quantize is ported)."""
+the port's --device; argfiles (`@file` with `#` comments) parse alike;
+--mesh_shape is checked against the launch's WORLD_SIZE (no model axis)."""
 
 import argparse
 
@@ -49,13 +48,22 @@ def test_argfiles_parse_as_vfi_tpus(tmp_path, which, args):
 
 
 def test_unported_flags_raise(monkeypatch):
-    for mode in ("int8", "int8_dynamic"):  # ported: int8 serving
+    """Nothing is refused any more but a mesh the launch cannot have: a model
+    axis, or a data axis other than WORLD_SIZE (int8 serving and data
+    parallelism are ported)."""
+    for mode in ("int8", "int8_dynamic"):
         assert tconfig.parse_args(tconfig.build_test_parser(), TEST_ARGS + ["--quantize", mode]).quantize == mode
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="model axis of 2"):
+        tconfig.parse_args(tconfig.build_train_parser(), TRAIN_ARGS + ["--mesh_shape", "1", "2"])
+    with pytest.raises(ValueError, match="data axis of 2 against a launch of 1"):
         tconfig.parse_args(tconfig.build_train_parser(), TRAIN_ARGS + ["--mesh_shape", "2"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tconfig.parse_args(tconfig.build_test_parser(), TEST_ARGS)
+    for shape in (["2"], ["2", "1"]):
+        assert tconfig.parse_args(tconfig.build_train_parser(), TRAIN_ARGS + ["--mesh_shape", *shape]).mesh_shape \
+            == [int(n) for n in shape]
+    with pytest.raises(ValueError, match="model axis of 2"):
+        tconfig.parse_args(tconfig.build_train_parser(), TRAIN_ARGS + ["--mesh_shape", "2", "2"])
+    assert tconfig.parse_args(tconfig.build_test_parser(), TEST_ARGS).K == 5  # a launch of predict parses
     monkeypatch.delenv("WORLD_SIZE")
     opt = tconfig.parse_args(tconfig.build_test_parser(), TEST_ARGS + ["--quantize", "none", "--device", "cpu"],
                              allow_unknown=True)

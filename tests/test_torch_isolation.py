@@ -38,7 +38,7 @@ def test_the_scan_sees_the_port():
     assert {"chip_smoke.py", "vfi_tpu_torch/cli/predict.py", "vfi_tpu_torch/data/datasets.py",
             "vfi_tpu_torch/ops/warp.py", "vfi_tpu_torch/nn/vgg.py", "vfi_tpu_torch/nn/transformer.py",
             "vfi_tpu_torch/models/slomo.py", "vfi_tpu_torch/models/sct.py", "vfi_tpu_torch/models/legacy_sct.py",
-            "vfi_tpu_torch/train/slomo_env.py"} <= names
+            "vfi_tpu_torch/train/slomo_env.py", "vfi_tpu_torch/parallel/mesh.py"} <= names
     assert len(names) > 25
     tree = ast.parse("import jax.numpy as jnp\nfrom vfi_tpu.ops import sepconv\nimportlib.import_module('optax')")
     assert set(_imported(tree)) == {"jax", "vfi_tpu", "optax"}

@@ -183,8 +183,12 @@ def test_predict_needs_the_cpu_asked_for_without_a_gpu(runs, monkeypatch, tmp_pa
         predict.main(args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         predict.main(args + ["--device", "cuda"])
-    monkeypatch.setenv("WORLD_SIZE", "2")  # an unported run (--quantize is ported since int8 serving)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # A launch of two ranks without its rendezvous: torch.distributed's own
+    # error, before anything is written.
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for var in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="env:// rendezvous"):
         predict.main(args + ["--device", "cpu"])
     assert not os.path.exists(tmp_path / "qual")
 

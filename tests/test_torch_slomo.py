@@ -103,7 +103,7 @@ def two_steps(vgg_npz):
         terms, lrs, grad1 = [], [], None
         queue = list(grads)
 
-        def set_jax_grads(module, loss):
+        def set_jax_grads(module, loss, group):
             g = queue.pop(0)
             for n, p in module.named_parameters():
                 p.grad = g[n].clone()

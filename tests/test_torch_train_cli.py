@@ -260,8 +260,8 @@ def test_tensorboard_events(runs):
 
 
 def test_train_refusals_and_tf32(runs, monkeypatch, tmp_path):
-    """Without a GPU the CPU must be asked for; a torch.distributed launch and
-    VFI_INT8 raise; --train_dtype float32 runs with TF32 off and puts both
+    """Without a GPU the CPU must be asked for; a launch's rank without a card
+    of its own and VFI_INT8 raise; --train_dtype float32 runs with TF32 off and puts both
     flags back when main returns and when it raises."""
     root = runs["root"]
     args = _args(str(tmp_path), "torch", "refused", LENS, runs["lists"], 1,
@@ -274,10 +274,12 @@ def test_train_refusals_and_tf32(runs, monkeypatch, tmp_path):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 train_cli.main(args)
         assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
-        with monkeypatch.context() as m:
-            m.setenv("WORLD_SIZE", "2")
-            with pytest.raises(NotImplementedError, match="item 9"):
-                train_cli.main(args + ["--device", "cpu"])
+        with monkeypatch.context() as m:  # a launch's rank without a card of its own
+            m.setattr(torch.cuda, "is_available", lambda: True)
+            m.setattr(torch.cuda, "device_count", lambda: 1)
+            m.setenv("LOCAL_RANK", "1")
+            with pytest.raises(RuntimeError, match="LOCAL_RANK=1 but 1 CUDA device"):
+                train_cli.main(args + ["--device", "cuda"])
         with monkeypatch.context() as m:
             m.setenv("VFI_INT8", "1")
             with pytest.raises(RuntimeError, match="VFI_INT8"):

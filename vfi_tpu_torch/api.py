@@ -14,6 +14,7 @@ passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 import numpy as np
@@ -26,10 +27,18 @@ from .utils import checkpoint as ckpt
 
 def resolve_device(device=None) -> torch.device:
     """``cuda`` by default; raise when a GPU is wanted and none is present
-    (the CPU must be asked for)."""
+    (the CPU must be asked for).  Under a torchrun launch (``LOCAL_RANK``
+    set), ``cuda`` is the rank's own card, ``cuda:LOCAL_RANK``, and a rank
+    without one raises; an explicit ``cuda:N`` is kept as given."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
+    local_rank = os.environ.get("LOCAL_RANK")
+    if device.type == "cuda" and device.index is None and local_rank is not None:
+        if int(local_rank) >= torch.cuda.device_count():
+            raise RuntimeError(f"LOCAL_RANK={local_rank} but {torch.cuda.device_count()} CUDA device(s) are visible: "
+                               "launch at most one rank per card, or name each rank's card with --device cuda:N")
+        device = torch.device("cuda", int(local_rank))
     return device
 
 

@@ -3,7 +3,9 @@
     python -m vfi_tpu_torch.cli.compute_quant_results QUAL_ROOT QUANT_ROOT K T [--depth 1] [--device cuda]
 
 The metrics run on ``--device`` (default ``cuda``; without a GPU the CPU
-must be asked for with ``--device cpu``).
+must be asked for with ``--device cpu``).  It is one process over the whole
+tree, also after a predict run of several ranks (whose folders together are
+one tree): launch it without torchrun.
 """
 
 import argparse

@@ -33,10 +33,26 @@ serving batch shape and through an unquantized float32 copy of the snapshot
 ``--quant_tol_db`` (or, with ``--disjoint_clips``, an agreement under 30 dB)
 exits with ``validate_quant REFUSED`` unless ``--force_quant``.  The
 validation clips are among the calibration clips, as in vfi_tpu.
+
+Several processes are launched by torchrun, one rank per card
+(``parallel/mesh.py``; vfi_tpu splits each batch over the devices of one
+process):
+
+    torchrun --nproc_per_node N -m vfi_tpu_torch.cli.predict ...
+
+Each rank predicts the clips ``rank::N`` of the list at ``--batch_size`` and
+writes their folders (PNG paths come from the clip labels, so the ranks'
+trees together are one process's tree), padding its own ragged final batch.
+Under ``--quantize int8`` rank 0 calibrates and sends the scales to every
+rank, and rank 0 runs the ``--validate_quant`` gate and sends its verdict,
+so that every rank refuses or goes on.  The progress and closing lines are
+each rank's, prefixed with it; rank 0 adds the total.
+``cli.compute_quant_results`` then scores the whole tree in one process.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import time
@@ -52,6 +68,8 @@ from ..models.registry import create_model
 from ..nn import quant
 from ..ops.image import BGR_LUMA, frames_from_uint8
 from ..ops.metrics import psnr, quantize_uint8, ssim
+from ..parallel.mesh import allgather_rows, broadcast_, broadcast_object, init_distributed, is_main, rank, shutdown, \
+    world_size
 from ..train.environments import create_eval_environment
 from ..utils import checkpoint as ckpt
 from ..utils.config import TrainConfig, build_test_parser, listopt, parse_args
@@ -83,7 +101,6 @@ def save_video_frames(frames_u8: np.ndarray, dest: str, prefix: str, start_t: in
 
 def main(argv=None) -> dict:
     opt = parse_args(build_test_parser(), argv, allow_unknown=True)
-    listopt(opt)
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     if opt.dtype == "float32":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -96,16 +113,27 @@ def main(argv=None) -> dict:
 
 def _predict(opt) -> dict:
     device = resolve_device(opt.device)
-    cuda = device.type == "cuda"
-    if cuda and device.index is None and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} GPUs visible: prediction over several GPUs is not ported yet "
-            "(ROADMAP.md queue 1 item 9); pick one with --device cuda:N")
-    if cuda and device.index is not None:
+    if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
+    groups = init_distributed(device)
+    try:
+        return _serve(opt, device, groups)
+    finally:
+        shutdown(groups)
+
+
+def _serve(opt, device, groups) -> dict:
+    """The predictions of one rank (of one process without ``groups``)."""
+    cuda = device.type == "cuda"
+    main, world, shard = is_main(), world_size(), rank()
+    dgroup, hgroup = (groups.device, groups.host) if groups is not None else (None, None)
+    say = print if main else (lambda *args, **kwargs: None)
+    tag = f"[rank {shard}] " if groups is not None else ""
+    if main:
+        listopt(opt)
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    print(f"device {device}, dtype {opt.dtype}, TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
-          f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
+    say(f"device {device}, dtype {opt.dtype}, TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
     if opt.disjoint_clips:
         ds = DisjointVideoClipDataset(
@@ -118,7 +146,7 @@ def _predict(opt) -> dict:
             opt.image_size, False, opt.padding_size, opt.data_root,
             emit_uint8=opt.device_normalize,
         )
-    print(f"# testing videos = {len(ds)}")
+    say(f"# testing videos = {len(ds)}")
 
     validate_n = opt.validate_quant if opt.validate_quant is not None else (4 if opt.quantize != "none" else 0)
     model_fp = None
@@ -128,7 +156,7 @@ def _predict(opt) -> dict:
         saved_int8 = os.environ.pop("VFI_INT8", None)
         try:
             model = quant.quantize_convs(create_model(opt.model_key), static=opt.quantize == "int8")
-            if validate_n > 0:
+            if validate_n > 0 and main:
                 model_fp = create_model(opt.model_key)
         finally:
             if saved_int8 is not None:
@@ -167,18 +195,36 @@ def _predict(opt) -> dict:
 
     if opt.quantize == "int8" and env.needs_snapshot:
         # Static scales: the running max of each conv's |input| over the first
-        # clips, from zero, in the serving dtype (nn/quant.py).
-        n_cal = max(1, min(opt.calib_clips, len(ds)))
-        cal = np.stack([ds[i]["targets"] for i in range(n_cal)])
-        if opt.device_normalize:
-            cal = host_normalize(cal)
-        cp, cf = (torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype) for a in context(cal))
-        with quant.calibrate(model):
-            env.forward_test(T, cp, cf)
-        del cal, cp, cf
-        print(f"int8 activation scales calibrated on {n_cal} clips")
-    if model_fp is not None and env.needs_snapshot and len(ds) > 0:
-        _validate_quant(opt, ds, env, model_fp, device, validate_n, host_normalize, to_model, context)
+        # clips, from zero, in the serving dtype (nn/quant.py); on rank 0, and
+        # sent from there to every rank.
+        if main:
+            n_cal = max(1, min(opt.calib_clips, len(ds)))
+            cal = np.stack([ds[i]["targets"] for i in range(n_cal)])
+            if opt.device_normalize:
+                cal = host_normalize(cal)
+            cp, cf = (torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype) for a in context(cal))
+            with quant.calibrate(model):
+                env.forward_test(T, cp, cf)
+            del cal, cp, cf
+            print(f"int8 activation scales calibrated on {n_cal} clips")
+        amax = list(quant.act_amax_state(model).values())
+        broadcast_(amax, dgroup)
+        digest = hashlib.sha256(torch.stack(amax).float().cpu().numpy().tobytes()).hexdigest()[:16]
+        print(f"{tag}int8 activation scales sha256 {digest}", flush=True)
+    if opt.quantize != "none" and validate_n > 0 and env.needs_snapshot and len(ds) > 0:
+        verdict = None
+        if main:
+            verdict = _validate_quant(opt, ds, env, model_fp, device, validate_n, host_normalize, to_model, context)
+        ok, detail = broadcast_object(verdict, hgroup)
+        if groups is not None:
+            print(f"{tag}validate_quant verdict of rank 0: {'passed' if ok else 'failed'}", flush=True)
+        if not ok and not opt.force_quant:
+            sys.exit(f"validate_quant REFUSED this checkpoint for {opt.quantize} "
+                     f"serving: {detail}. Re-run with --force_quant to override, "
+                     f"--quant_tol_db to widen the gate, or --validate_quant 0 "
+                     f"to skip validation.")
+        if not ok:
+            say(f"validate_quant FAILED ({detail}) — proceeding (--force_quant)")
     del model_fp
 
     n_done = 0
@@ -232,9 +278,11 @@ def _predict(opt) -> dict:
                     save_video_frames(out[key][b], dest, prefix, K, H, W)
         n_done += len(clip_labels)
         times["write_s"] += time.perf_counter() - t0
-        print(f"processed {n_done}/{len(ds)} clips", flush=True)
+        print(f"{tag}processed {n_done}/{n_mine} clips", flush=True)
 
-    batches = Prefetcher(batch_iterator(ds, opt.batch_size, False, False, num_workers=opt.num_threads), depth=2)
+    n_mine = len(range(shard, len(ds), world))
+    batches = Prefetcher(batch_iterator(ds, opt.batch_size, False, False, num_shards=world, shard_index=shard,
+                                        num_workers=opt.num_threads), depth=2)
     depth = max(1, int(os.environ.get("VFI_INFLIGHT", "2")))
     inflight = deque()
     n_batch = 0
@@ -259,7 +307,7 @@ def _predict(opt) -> dict:
         # Serving observability: trace a window of prediction batches (same
         # semantics as the train CLI's --profile_steps).
         n_batch += 1
-        if opt.profile_steps is not None:
+        if opt.profile_steps is not None and main:
             start, stop = opt.profile_steps
             if n_batch == start:
                 activities = [torch.profiler.ProfilerActivity.CPU]
@@ -284,7 +332,7 @@ def _predict(opt) -> dict:
             pad = opt.batch_size - n_real
             preceding = torch.cat([preceding, preceding[-1:].expand(pad, *preceding.shape[1:])])
             following = torch.cat([following, following[-1:].expand(pad, *following.shape[1:])])
-            print(f"padded final batch {n_real} -> {opt.batch_size} "
+            print(f"{tag}padded final batch {n_real} -> {opt.batch_size} "
                   "(one batch shape; --no_pad_final_batch disables)", flush=True)
         if cuda:
             span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -305,24 +353,28 @@ def _predict(opt) -> dict:
     dt_loop = time.perf_counter() - t_loop0
     forward_s = sum(s[0].elapsed_time(s[1]) / 1e3 if cuda else s for s in forward_spans)
     if n_done:
-        print(f"predicted {n_done} clips in {dt_loop:.2f} s "
+        print(f"{tag}predicted {n_done} clips in {dt_loop:.2f} s "
               f"({n_done / dt_loop:.2f} clips/s, inflight={depth})", flush=True)
-        print(f"forward {forward_s:.2f} s ({forward_s / dt_loop:.1%} of the loop) on {device}; host: waiting for "
+        print(f"{tag}forward {forward_s:.2f} s ({forward_s / dt_loop:.1%} of the loop) on {device}; host: waiting for "
               f"data {times['wait_data_s']:.2f} s, writing PNGs {times['write_s']:.2f} s (of which waiting for "
               f"the device {times['wait_device_s']:.2f} s, normalizing GT frames {times['normalize_s']:.2f} s)",
               flush=True)
     if prof is not None:  # STOP batch never reached (short dataset) — close the trace
         stop_trace()
-    print("predictions written to", opt.qual_result_root)
+    if groups is not None:
+        total = int(allgather_rows(np.asarray([[n_done]], np.float32), hgroup).sum())
+        say(f"all {world} ranks: {total} of {len(ds)} clips predicted", flush=True)
+    print(f"{tag}predictions written to", opt.qual_result_root)
     return dict(clips=n_done, batches=n_batch, inflight=depth, loop_s=dt_loop, forward_s=forward_s,
-                trace=trace_path, **times)
+                trace=trace_path, rank=shard, world=world, **times)
 
 
-def _validate_quant(opt, ds, env, model_fp, device, validate_n, host_normalize, to_model, context) -> None:
+def _validate_quant(opt, ds, env, model_fp, device, validate_n, host_normalize, to_model, context) -> tuple:
     """vfi_tpu's --validate_quant gate: the first clips through the quantized
     model (padded to the serving batch) and through ``model_fp``, the
-    unquantized float32 model, with TF32 off; exits with ``validate_quant
-    REFUSED`` when the quantized predictions fall short, unless --force_quant."""
+    unquantized float32 model, with TF32 off.  Returns (passed, why not): the
+    caller exits with ``validate_quant REFUSED`` when it failed, unless
+    --force_quant."""
     K, T = opt.K, opt.T
     n_val = min(validate_n, len(ds), opt.batch_size)
     val = np.stack([ds[i]["targets"] for i in range(n_val)])
@@ -364,13 +416,7 @@ def _validate_quant(opt, ds, env, model_fp, device, validate_n, host_normalize, 
               f"(delta {ssim_q - ssim_fp:+.4f}); agreement {agree:.2f} dB")
         ok = psnr_q - psnr_fp >= -opt.quant_tol_db
         detail = f"PSNR drop {psnr_fp - psnr_q:.3f} dB > tolerance {opt.quant_tol_db} dB"
-    if not ok and not opt.force_quant:
-        sys.exit(f"validate_quant REFUSED this checkpoint for {opt.quantize} "
-                 f"serving: {detail}. Re-run with --force_quant to override, "
-                 f"--quant_tol_db to widen the gate, or --validate_quant 0 "
-                 f"to skip validation.")
-    if not ok:
-        print(f"validate_quant FAILED ({detail}) — proceeding (--force_quant)")
+    return ok, detail
 
 
 if __name__ == "__main__":

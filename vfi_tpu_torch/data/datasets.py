@@ -291,7 +291,8 @@ def batch_iterator(
             # Would otherwise spin forever yielding nothing (every chunk is
             # dropped) — a silent infinite loop in the prefetcher.
             raise ValueError(
-                f"dataset shard has {len(order)} items but batch_size={batch_size} "
+                f"rank {shard_index} of {num_shards}: its dataset shard has {len(order)} of {len(dataset)} items "
+                f"but batch_size={batch_size} "
                 f"with drop_last=True would never yield a batch"
             )
         while True:

@@ -16,6 +16,12 @@ runs no second forward.  Unlike vfi_tpu's pure steps, ``train_step`` updates
 the state's modules and optimizers in place (no second copy of the weights
 or Adam moments) and returns the same state.
 
+Data parallelism (``create_training_environment(model, cfg, group)``): each
+rank steps on its own rows, and every update averages its gradients over the
+group's ranks before Adam steps, so ranks that start from the same state
+(``parallel.replicate_state``) stay bit-identical and each update is the
+update on the global batch.
+
 SCT models train in :class:`SCTEnvironment` (teacher forcing on a sigmoid
 schedule, random generation orders drawn from the state's ``rng``), Super
 SloMo in ``slomo_env.SloMoEnvironment`` (no discriminator; its state's
@@ -52,6 +58,7 @@ from ..models.slomo import SloMoFillInModel
 from ..nn.discriminator import SNDiscriminator
 from ..ops.image import inverse_transform
 from ..ops.metrics import psnr, quantize_uint8, ssim
+from ..parallel.mesh import allreduce_mean_
 from ..utils.params import disc_variables_from_jax, params_from_jax
 from .losses import bce_with_logits, disc_window_labels, gdl_loss, l2_loss
 
@@ -82,13 +89,33 @@ def split_batch(targets: torch.Tensor, K: int, T: int, F: int):
     return targets[:, :K], targets[:, K : K + T], targets[:, K + T : K + T + F]
 
 
-def _set_grads(module: nn.Module, loss: torch.Tensor) -> None:
+def _set_grads(module: nn.Module, loss: torch.Tensor, group=None) -> None:
     """``.grad`` of every parameter of ``module`` (zeros where unused); no
-    other parameter's gradient is computed or touched."""
+    other parameter's gradient is computed or touched.  With a process
+    ``group``, the gradients are averaged over its ranks first (one
+    all-reduce), so each rank's update is the update on the global batch:
+    the all-reduce XLA inserts for vfi_tpu's data-sharded batch.  The steps
+    take gradients with ``torch.autograd.grad``, not ``.backward()``, so
+    ``DistributedDataParallel``'s hooks would never fire."""
     params = list(module.parameters())
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True))]
+    if group is not None:
+        allreduce_mean_(grads, group)
     for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
+        p.grad = g
+
+
+def mean_terms(terms: Terms, group=None) -> Dict[str, float]:
+    """A step's terms as floats (waits for the device), averaged over the
+    ranks of ``group`` where one is given: with equal local batches, the
+    means over the global batch that vfi_tpu prints.  Every rank of the
+    group must call it."""
+    keys = sorted(terms)
+    values = torch.stack([terms[k].float() for k in keys])
+    if group is not None:
+        allreduce_mean_([values], group)
+    return dict(zip(keys, values.tolist()))
 
 
 class BaseEnvironment:
@@ -100,9 +127,10 @@ class BaseEnvironment:
 
     needs_snapshot = True  # False for parameter-free models
 
-    def __init__(self, model: nn.Module, cfg):
+    def __init__(self, model: nn.Module, cfg, group=None):
         self.model = model
         self.cfg = cfg
+        self.group = group  # the process group gradients are averaged over; None in one process
 
     def _adam(self, module: nn.Module) -> torch.optim.Adam:
         return torch.optim.Adam(module.parameters(), lr=self.cfg.lr, betas=(self.cfg.beta1, 0.999), eps=1e-8)
@@ -235,7 +263,7 @@ class L2GDLDiscEnvironment(BaseEnvironment):
     def _g_update(self, state: TrainState, K: int, T: int, F: int, targets: torch.Tensor) -> Tuple[torch.Tensor, Terms]:
         """One Adam step of the generator; returns its prediction (detached) and the G terms."""
         loss, (out, terms) = self._g_loss(state, K, T, F, targets)
-        _set_grads(state.generator, loss)
+        _set_grads(state.generator, loss, self.group)
         state.g_opt.step()
         state.step += 1
         return out["pred"].detach(), {k: v.detach() for k, v in terms.items()}
@@ -244,7 +272,7 @@ class L2GDLDiscEnvironment(BaseEnvironment):
                   targets: torch.Tensor) -> Terms:
         """One Adam step of the discriminator on ``pred``; returns the D terms."""
         loss, terms = self._d_loss(state, pred, K, T, F, targets)
-        _set_grads(state.discriminator, loss)
+        _set_grads(state.discriminator, loss, self.group)
         state.d_opt.step()
         return {k: v.detach().float() for k, v in terms.items()}
 
@@ -337,12 +365,13 @@ class SCTEnvironment(L2GDLDiscEnvironment):
         return loss, (out, terms)
 
 
-def create_training_environment(model: nn.Module, cfg) -> BaseEnvironment:
+def create_training_environment(model: nn.Module, cfg, group=None) -> BaseEnvironment:
     """The environment for a generator, as vfi_tpu dispatches: TAI, TWI (a
     TAI subclass), bi-SA and bi-TWA train in :class:`TAIEnvironment`, MC-Net
     in :class:`MCNetEnvironment`, the SCT family in :class:`SCTEnvironment`,
     Super SloMo in ``slomo_env.SloMoEnvironment``; any other model raises
-    ``TypeError``.
+    ``TypeError``.  With a process ``group`` (``parallel.Groups.device``),
+    every update averages its gradients over the group's ranks.
     Raises ``RuntimeError`` when ``VFI_INT8`` asks for vfi_tpu's int8 convs,
     which are inference-only (their rounding has a zero gradient)."""
     if os.environ.get("VFI_INT8", "0") in ("1", "2"):
@@ -350,15 +379,15 @@ def create_training_environment(model: nn.Module, cfg) -> BaseEnvironment:
                            "rounding); unset it for training")
     if isinstance(model, (TAIFillInModel, BidirectionalSimpleAverageFillInModel,
                           BidirectionalTimeWeightedAverageFillInModel)):
-        return TAIEnvironment(model, cfg)
+        return TAIEnvironment(model, cfg, group)
     if isinstance(model, MCNetFillInModel):
-        return MCNetEnvironment(model, cfg)
+        return MCNetEnvironment(model, cfg, group)
     if isinstance(model, SloMoFillInModel):
         from .slomo_env import SloMoEnvironment
 
-        return SloMoEnvironment(model, cfg)
+        return SloMoEnvironment(model, cfg, group)
     if isinstance(model, BaseSCTFillInModel):
-        return SCTEnvironment(model, cfg)
+        return SCTEnvironment(model, cfg, group)
     raise TypeError(f"no training environment for model type {type(model).__name__}")
 
 

@@ -45,8 +45,8 @@ def _nchw(frames: torch.Tensor) -> torch.Tensor:
 
 
 class SloMoEnvironment(BaseEnvironment):
-    def __init__(self, model: nn.Module, cfg):
-        super().__init__(model, cfg)
+    def __init__(self, model: nn.Module, cfg, group=None):
+        super().__init__(model, cfg, group)
         self._vgg = try_load_vgg16(cfg.vgg16_weights)
         if self._vgg is None and cfg.lambda_p > 0:
             raise RuntimeError(
@@ -129,7 +129,7 @@ class SloMoEnvironment(BaseEnvironment):
         for group in state.g_opt.param_groups:
             group["lr"] = self.learning_rate(state.step)
         loss, terms = self._g_loss(state, K, T, F, targets)
-        _set_grads(state.generator, loss)
+        _set_grads(state.generator, loss, self.group)
         state.g_opt.step()
         state.step += 1
         return state, {k: v.detach() for k, v in terms.items()}

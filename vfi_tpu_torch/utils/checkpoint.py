@@ -22,6 +22,13 @@ with ``weights_only=True``:
 
 ``scripts/convert_checkpoint_torch.py`` converts vfi_tpu snapshots to this
 layout and back.
+
+Under a launch of several ranks (``parallel/mesh.py``) saving is rank 0's
+alone, and nothing here waits on another rank: each rank runs its own
+program and only rank 0 calls :func:`save_snapshot`, so a save that waited
+on the others would deadlock them (vfi_tpu's ``utils/checkpoint.py`` gives the
+same reason).  Rank 0 loads, and ``parallel.replicate_state`` then gives
+every rank its state.
 """
 
 from __future__ import annotations

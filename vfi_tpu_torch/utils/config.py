@@ -4,11 +4,9 @@
 Flag names, defaults and semantics are vfi_tpu's (themselves the reference's
 src/options/options.py:6-209), with one addition: ``--device`` (default
 ``cuda``), the port's explicit device, where vfi_tpu reads ``JAX_PLATFORMS``.
-Flags the port cannot honour yet raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item, never silently ignored: ``--mesh_shape`` (item 9), and
-a launch of several processes under ``torch.distributed`` (``WORLD_SIZE`` >
-1, item 9; vfi_tpu's multi-host branch).  Option files compose as
-vfi_tpu's do, through argparse's ``@file`` syntax with '#'-comment stripping:
+``--mesh_shape`` is checked against the launch (``WORLD_SIZE``; see
+``parallel.make_mesh``).  Option files compose as vfi_tpu's do, through
+argparse's ``@file`` syntax with '#'-comment stripping:
 
     python -m vfi_tpu_torch.cli.predict @exp_args/default_args/KTH/test_5.txt @exp_args/extra_args/KTH/bi-TAI.txt
 
@@ -23,6 +21,8 @@ import shlex
 import sys
 from dataclasses import dataclass
 from typing import Optional, Sequence
+
+from ..parallel.mesh import make_mesh
 
 
 class ArgFileParser(argparse.ArgumentParser):
@@ -129,8 +129,8 @@ def build_train_parser() -> ArgFileParser:
     g = p.add_argument_group("Run parameters")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--mesh_shape", type=int, nargs="+", default=None,
-                   help="Device mesh shape for data parallelism (not ported yet: ROADMAP.md queue 1 "
-                        "item 9; giving it raises)")
+                   help="Mesh shape for data parallelism, checked against the torchrun launch: "
+                        "(world,) or (world, 1); there is no model axis. Default: every rank on the data axis")
     g.add_argument("--profile_steps", type=int, nargs=2, default=None, metavar=("START", "STOP"),
                    help="Capture a torch.profiler trace between these iterations")
     g.add_argument("--profile_dir", type=str, default="/tmp/vfi_tpu_trace")
@@ -216,17 +216,6 @@ def normalize_sizes(opt) -> None:
         opt.padding_size = [opt.padding_size[0], opt.padding_size[0]]
 
 
-def refuse_unported(opt) -> None:
-    """Raise ``NotImplementedError`` for a flag whose feature is not ported yet."""
-    if getattr(opt, "mesh_shape", None) is not None:
-        raise NotImplementedError("--mesh_shape: data parallelism over several GPUs is not ported yet "
-                                  "(ROADMAP.md queue 1 item 9)")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise NotImplementedError(f"WORLD_SIZE={world}: runs over several processes (torch.distributed) are "
-                                  "not ported yet (ROADMAP.md queue 1 item 9)")
-
-
 def parse_args(parser: ArgFileParser, argv: Optional[Sequence[str]] = None, allow_unknown: bool = False):
     if allow_unknown:
         opt, unknown = parser.parse_known_args(argv)
@@ -235,7 +224,8 @@ def parse_args(parser: ArgFileParser, argv: Optional[Sequence[str]] = None, allo
     else:
         opt = parser.parse_args(argv)
     normalize_sizes(opt)
-    refuse_unported(opt)
+    if getattr(opt, "mesh_shape", None) is not None:
+        make_mesh(opt.mesh_shape, int(os.environ.get("WORLD_SIZE", "1")))
     return opt
 
 
