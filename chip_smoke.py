@@ -18,7 +18,8 @@ Phases, one JSON line each:
   1. device      — the card's name and count; fails without CUDA.
   2. build       — compiles every CUDA kernel from ``vfi_tpu_torch/ops/csrc``
                    (five sources), all nvcc processes at once; fails if ptxas
-                   reports a spill in any instantiation.
+                   reports a spill in any instantiation, or if the int8 conv's
+                   SASS (``cuobjdump -sass``) holds no IGMMA (wgmma s8).
   3. kernel      — each kernel against its plain PyTorch version on the card:
                    f32 (TF32 off) within 1e-4 * max(1, max|ref|); bf16 within
                    one bf16 ulp of the f32 plain version on the same bf16
@@ -40,13 +41,19 @@ Phases, one JSON line each:
                    what it stores, max-abs at 4096 points of each output and
                    uint8 PSNR of pred's frames), then bf16 uint8 requests at
                    B=16, launches counted.
-  6a. qconv_kernel — the int8 serving kernels (``ops/csrc/qconv_int8.cu``)
-                   against their plain versions at every conv shape of
-                   TAI_gray's int8 forward (36) and SloMo_color's 7x7 and 1x1
-                   convs, on 2 images: the quantize byte-equal, the int32 sums
-                   exact, the dequantized outputs within one float32 / bfloat16
-                   ulp; then each TAI_gray shape timed at its images per call
-                   at B=64 beside its bound and cuDNN's bf16 conv.
+  6a. qconv_kernel — the int8 serving kernel (``ops/csrc/qconv_int8.cu``,
+                   the activation quantize fused into a wgmma int8 conv)
+                   against ``qconv_int8_plain(quantize_int8_plain(x))`` at
+                   every conv shape of TAI_gray's int8 forward (36) and
+                   SloMo_color's 7x7 and 1x1 convs (5), on 2 images of
+                   float32 and of bfloat16 x: the int32 sums exact, the
+                   dequantized outputs within one float32 / bfloat16 ulp, the
+                   quantized bytes equal (a centre-tap identity conv returns
+                   them), the element path (strided x) exact; then each
+                   TAI_gray shape timed at its images per call at B=64 beside
+                   its bound, cuDNN's bf16 conv and ``torch._int_mm`` on the
+                   GEMM's operands (with ``--baseline``, that checkout's
+                   quantize + conv in turns).
   6b. serve_int8 — TAI_gray under VFI_INT8 (f32, TF32 off) against
                    ``tests/torch_golden_tai_gray_int8.npz``: static with the
                    golden's scales, static with the port's own calibration,
@@ -181,7 +188,7 @@ Phases, one JSON line each:
                    training shapes, the adjoints at both training shapes;
                    with ``--baseline``, another checkout's four kernels in
                    turns with these); a ``kernels`` line with each kernel's
-                   numbers, the two int8 kernels' from ``qconv_kernel``.
+                   numbers, the int8 kernel's from ``qconv_kernel``.
 
 Prints the card's name and power limit (nvidia-smi) on the line before the
 last, and as the last line ``{"ok": true, "device": {...}}``.  Any failed gate
@@ -248,7 +255,7 @@ TERM_NAMES = ("G_Lp", "G_gdl", "G_GAN", "G_Lp_forward", "G_Lp_backward", "G_gdl_
 PRED_KEYS = ("pred", "pred_forward", "pred_backward")
 KERNELS = ("sepconv_fwd_mxu", "sepconv_fwd", "sepconv_bwd_vh", "sepconv_bwd_x")
 # The int8 serving kernels (csrc/qconv_int8.cu), counted in ops/qconv.py.
-QKERNELS = ("qconv_int8", "quantize_int8")
+QKERNELS = ("qconv_int8",)
 COUNTED = {**{k: sepconv_ops for k in KERNELS}, **{k: qconv_ops for k in QKERNELS}}
 # The two forward kernels: wrapper, plain version, and the line of the TPU
 # kernel's pallas_call in vfi_tpu/ops/sepconv.py.
@@ -1071,7 +1078,7 @@ def phase_timing_predict(root: str, videolist: str, warm: dict) -> None:
 
 
 # The int8 serving phases: vfi_tpu's VFI_INT8 / --quantize modes through the
-# port's int8 kernels (ops/csrc/qconv_int8.cu).
+# port's int8 kernel (ops/csrc/qconv_int8.cu).
 INT8_GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_tai_gray_int8.npz")
 # SloMo_color's 7x7 first convs and 1x1 out convs (C_in, C_out, k, H, W), checked beside TAI_gray's.
 SLOMO_QCONV_SHAPES = ((6, 32, 7, 256, 320), (16, 32, 7, 256, 320), (32, 32, 7, 256, 320), (32, 4, 1, 256, 320),
@@ -1131,19 +1138,39 @@ def int8_peak(peak) -> float:
     return 2 * peak[1]
 
 
-def qconv_bound_ms(images, cin, cout, k, h, w, out_bytes, peak) -> tuple[float, str]:
-    """xq, wq read once, the output written once, over the memory rate; or
-    2 * MAC (the unpadded channels) over the dense int8 rate."""
+def qconv_bound_ms(images, cin, cout, k, h, w, in_bytes, out_bytes, peak) -> tuple[float, str]:
+    """The fused kernel: x (its own dtype, the unpadded channels), the int8
+    weights and the output once over the memory rate; or 2 * MAC (the
+    unpadded channels) over the dense int8 rate."""
     cp = qconv_ops.padded_channels(cin)
-    nbytes = images * h * w * cp + cout * k * k * cp + images * cout * h * w * out_bytes
+    nbytes = images * cin * h * w * in_bytes + cout * k * k * cp + images * cout * h * w * out_bytes
     t_bytes = nbytes / peak[0] * 1e3
     t_ops = 2 * images * h * w * cout * cin * k * k / int8_peak(peak) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def quantize_bound_ms(x: torch.Tensor, peak) -> tuple[float, str]:
-    n, c, h, w = x.shape
-    return (x.numel() * x.element_size() + n * h * w * qconv_ops.padded_channels(c)) / peak[0] * 1e3, "bytes"
+def unfused_bound_ms(images, cin, cout, k, h, w, in_bytes, out_bytes, peak) -> float:
+    """The bound of a separate quantize pass (x read, NHWC int8 written) plus
+    an int8 conv that reads it back, as an unfused quantize kernel and conv run."""
+    cp = qconv_ops.padded_channels(cin)
+    quantize = (images * cin * h * w * in_bytes + images * h * w * cp) / peak[0] * 1e3
+    conv_bytes = (images * h * w * cp + cout * k * k * cp + images * cout * h * w * out_bytes) / peak[0] * 1e3
+    return quantize + max(conv_bytes, 2 * images * h * w * cout * cin * k * k / int8_peak(peak) * 1e3)
+
+
+def int_mm_ms(images, cin, cout, k, h, w, gen):
+    """The yardstick, never on the port's path: one ``torch._int_mm`` on random
+    int8 operands of the implicit GEMM's [N*H*W, k*k*Cp] x [k*k*Cp, Co] (Co
+    padded to a multiple of 8): the GEMM alone, im2col not counted.  None
+    where the call refuses the shape."""
+    m, kk, n = images * h * w, k * k * qconv_ops.padded_channels(cin), -(-cout // 8) * 8
+    a = torch.randint(-127, 128, (m, kk), dtype=torch.int8, device="cuda", generator=gen)
+    b = torch.randint(-127, 128, (n, kk), dtype=torch.int8, device="cuda", generator=gen).t()
+    try:
+        return cuda_ms(lambda: torch._int_mm(a, b), iters=5)
+    except RuntimeError as e:
+        emit("int_mm_refused", shape=[m, kk, n], error=str(e)[:200])
+        return None
 
 
 def f32_ulp(t: torch.Tensor) -> torch.Tensor:
@@ -1166,86 +1193,125 @@ def _qconv_operands(images, cin, cout, k, h, w, gen):
     return x, x_scale, wq, (x_scale * w_scale).contiguous(), conv[0].bias.detach(), conv[0].weight.detach()
 
 
-def phase_qconv_kernel(gen, peak, schedule) -> dict:
-    """Both int8 kernels against their plain versions at every conv shape of
-    TAI_gray's int8 forward (``schedule``) and SloMo_color's 7x7 and 1x1
-    convs, on 2 images: the quantize byte-equal (float32 and bfloat16 input),
-    the int32 sums exact, the dequantized float32 output within one float32
-    ulp and bfloat16 within one bfloat16 ulp.  Then each TAI_gray (shape,
-    images per call at B=64) timed, the quantize of its bf16 input and the
-    conv (bf16 out), beside its bound and cuDNN's bf16 conv at the same
-    shape.  Returns the kernels line's numbers."""
+def phase_qconv_kernel(gen, peak, schedule, baseline=None) -> dict:
+    """The fused int8 kernel against ``qconv_int8_plain(quantize_int8_plain(x))``
+    at every conv shape of TAI_gray's int8 forward (``schedule``) and
+    SloMo_color's 7x7 and 1x1 convs, on 2 images, float32 and bfloat16 x:
+    the int32 sums exact, float32 and bfloat16 outputs within one ulp of the
+    plain epilogue, and the quantized bytes equal to ``quantize_int8_plain``'s
+    (a centre-tap identity conv returns them as its int32 sums); and the
+    element path (x with non-unit column stride) exact.  Then each TAI_gray
+    (shape, images per call at B=64), where a block runs many work items,
+    held to the same gates on bfloat16 x (int32 exact, bfloat16 output within
+    one ulp; the headline's float32 output too) and timed (bf16 in and out)
+    beside its bound,
+    cuDNN's bf16 conv, ``torch._int_mm`` on the GEMM's operands and, with
+    ``baseline``, that checkout's quantize + conv in turns.  Returns the
+    kernels line's numbers."""
     t0 = time.perf_counter()
     shapes = sorted({c[1:6] for c in schedule})
-    worst = {"qconv_int8_int32": 0, "qconv_int8_f32_ulps": 0.0, "qconv_int8_bf16_ulps": 0.0}
+    worst = {"qconv_int8_int32": 0, "qconv_int8_f32_ulps": 0.0, "qconv_int8_bf16_ulps": 0.0,
+             "element_path_int32": 0}
     with uncounted():
         for cin, cout, k, h, w in shapes + list(SLOMO_QCONV_SHAPES):
             x, s, wq, scale, b, _ = _qconv_operands(2, cin, cout, k, h, w, gen)
+            packed = qconv_ops.pack_weight(wq, qconv_ops.n_tile(cout))
+            cp = qconv_ops.padded_channels(cin)
+            eye = torch.zeros(cp, k, k, cp, dtype=torch.int8, device="cuda")
+            eye[torch.arange(cp), k // 2, k // 2, torch.arange(cp)] = 1
+            eye_packed = qconv_ops.pack_weight(eye, qconv_ops.n_tile(cp))
             for xin in (x, x.bfloat16()):
-                xq = qconv_ops.quantize_int8_cuda(xin, s)
+                xq = qconv_ops.quantize_int8_plain(xin, s)
+                acc_p = qconv_ops.qconv_int8_plain(xq, wq)
+                acc = qconv_ops.qconv_int8_cuda(xin, s, wq, packed)
+                y32 = qconv_ops.qconv_int8_cuda(xin, s, wq, packed, scale, b, torch.float32)
+                y16 = qconv_ops.qconv_int8_cuda(xin, s, wq, packed, scale, b, torch.bfloat16)
+                ident = qconv_ops.qconv_int8_cuda(xin, s, eye, eye_packed)
                 torch.cuda.synchronize()
-                gate(torch.equal(xq, qconv_ops.quantize_int8_plain(xin, s)),
-                     f"quantize_int8 {xin.dtype} {tuple(xin.shape)}: bytes differ from the plain quantize")
-            xq = qconv_ops.quantize_int8_cuda(x, s)
-            acc, acc_p = qconv_ops.qconv_int8_cuda(xq, wq), qconv_ops.qconv_int8_plain(xq, wq)
-            torch.cuda.synchronize()
-            d_int = int((acc.long() - acc_p.long()).abs().max())
-            y32 = qconv_ops.qconv_int8_cuda(xq, wq, scale, b, torch.float32)
-            want32 = qconv_ops.qconv_int8_plain(xq, wq, scale, b, torch.float32)
-            y16 = qconv_ops.qconv_int8_cuda(xq, wq, scale, b, torch.bfloat16)
-            want16 = qconv_ops.qconv_int8_plain(xq, wq, scale, b, torch.bfloat16)
-            torch.cuda.synchronize()
-            ulps32 = float(((y32 - want32).abs() / f32_ulp(want32)).max())
-            ulps16 = float(((y16.float() - want16.float()).abs() / bf16_ulp(want16.float())).max())
-            worst["qconv_int8_int32"] = max(worst["qconv_int8_int32"], d_int)
-            worst["qconv_int8_f32_ulps"] = max(worst["qconv_int8_f32_ulps"], ulps32)
-            worst["qconv_int8_bf16_ulps"] = max(worst["qconv_int8_bf16_ulps"], ulps16)
-            gate(d_int == 0, f"qconv_int8 {cin, cout, k, h, w}: int32 sums off the plain conv by {d_int}")
-            gate(ulps32 <= 1.0, f"qconv_int8 {cin, cout, k, h, w}: float32 output {ulps32} ulps off the plain epilogue")
-            gate(ulps16 <= 1.0, f"qconv_int8 {cin, cout, k, h, w}: bfloat16 output {ulps16} ulps off")
-            del x, xq, acc, acc_p, y32, want32, y16, want16
+                want32 = qconv_ops.dequantize_plain(acc_p, scale, b, torch.float32)
+                want16 = qconv_ops.dequantize_plain(acc_p, scale, b, torch.bfloat16)
+                d_int = int((acc.long() - acc_p.long()).abs().max())
+                ulps32 = float(((y32 - want32).abs() / f32_ulp(want32)).max())
+                ulps16 = float(((y16.float() - want16.float()).abs() / bf16_ulp(want16.float())).max())
+                worst["qconv_int8_int32"] = max(worst["qconv_int8_int32"], d_int)
+                worst["qconv_int8_f32_ulps"] = max(worst["qconv_int8_f32_ulps"], ulps32)
+                worst["qconv_int8_bf16_ulps"] = max(worst["qconv_int8_bf16_ulps"], ulps16)
+                what = f"qconv_int8 {cin, cout, k, h, w} {xin.dtype} x"
+                gate(torch.equal(ident, xq.permute(0, 3, 1, 2).int()),
+                     f"{what}: quantized bytes differ from quantize_int8_plain's")
+                gate(d_int == 0, f"{what}: int32 sums off the plain conv by {d_int}")
+                gate(ulps32 <= 1.0, f"{what}: float32 output {ulps32} ulps off the plain epilogue")
+                gate(ulps16 <= 1.0, f"{what}: bfloat16 output {ulps16} ulps off")
+                del xq, acc, y32, y16, ident, want32, want16
+            # The element path: the same bfloat16 values, columns not contiguous.
+            xs = x.bfloat16().transpose(2, 3).contiguous().transpose(2, 3)
+            d_el = int((qconv_ops.qconv_int8_cuda(xs, s, wq, packed).long() - acc_p.long()).abs().max())
+            worst["element_path_int32"] = max(worst["element_path_int32"], d_el)
+            gate(d_el == 0, f"qconv_int8 {cin, cout, k, h, w}: element path's int32 sums off by {d_el}")
+            del x, xs, eye, eye_packed, packed, acc_p
         emit("qconv_kernel_checks", tai_gray_shapes=len(shapes), slomo_shapes=len(SLOMO_QCONV_SHAPES), images=2,
-             quantize_int8_bytes_equal=True, **worst)
+             inputs=["float32", "bfloat16"], quantized_bytes_equal=True, **worst)
         torch.cuda.empty_cache()
 
         counts = {}
         for _, cin, cout, k, h, w, n in schedule:
             key = (cin, cout, k, h, w, n * INT8_SERVE_B)
             counts[key] = counts.get(key, 0) + 1
-        totals = {"ms": 0.0, "quantize_ms": 0.0, "bound_ms": 0.0, "quantize_bound_ms": 0.0, "cudnn_bf16_ms": 0.0}
+        totals = {"ms": 0.0, "bound_ms": 0.0, "cudnn_bf16_ms": 0.0, "library_ms": 0.0}
+        base_fn = (baseline or {}).get("qconv_int8")
+        if base_fn is not None:
+            totals.update(baseline_ms=0.0, baseline_bound_ms=0.0)
         headline = None
+        at_batch = {"qconv_int8_int32": 0, "qconv_int8_bf16_ulps": 0.0, "headline_f32_ulps": 0.0}
         for key, calls in sorted(counts.items()):
             cin, cout, k, h, w, images = key
             x, s, wq, scale, b, w32 = _qconv_operands(images, cin, cout, k, h, w, gen)
             x16, w16, b16 = x.bfloat16(), w32.bfloat16(), b.bfloat16()
-            del x
-            xq = qconv_ops.quantize_int8_cuda(x16, s)
-            q_ms = cuda_ms(lambda: qconv_ops.quantize_int8_cuda(x16, s), iters=5)
-            c_ms = cuda_ms(lambda: qconv_ops.qconv_int8_cuda(xq, wq, scale, b, torch.bfloat16), iters=5)
+            packed = qconv_ops.pack_weight(wq, qconv_ops.n_tile(cout))
+            # At the main path's images per call a block runs many work items:
+            # held exact here too, on the operands it is timed on.
+            acc_p = qconv_ops.qconv_int8_plain(qconv_ops.quantize_int8_plain(x16, s), wq)
+            d_int = int((qconv_ops.qconv_int8_cuda(x16, s, wq, packed).long() - acc_p.long()).abs().max())
+            want16 = qconv_ops.dequantize_plain(acc_p, scale, b, torch.bfloat16).float()
+            y16 = qconv_ops.qconv_int8_cuda(x16, s, wq, packed, scale, b, torch.bfloat16).float()
+            ulps16 = float(((y16 - want16).abs() / bf16_ulp(want16)).max())
+            at_batch["qconv_int8_int32"] = max(at_batch["qconv_int8_int32"], d_int)
+            at_batch["qconv_int8_bf16_ulps"] = max(at_batch["qconv_int8_bf16_ulps"], ulps16)
+            gate(d_int == 0, f"qconv_int8 {key}: int32 sums off the plain conv by {d_int}")
+            gate(ulps16 <= 1.0, f"qconv_int8 {key}: bfloat16 output {ulps16} ulps off the plain epilogue")
+            del acc_p, want16, y16
+
+            def fused(x_, s_, wq_, scale_, b_):
+                return qconv_ops.qconv_int8_cuda(x_, s_, wq_, packed, scale_, b_, torch.bfloat16)
+
+            ms, base_ms = timed_in_turns(fused, (x16, s, wq, scale, b), base_fn, iters=5)
             cudnn_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x16, w16, b16, padding=k // 2), iters=5)
-            bound, by = qconv_bound_ms(images, cin, cout, k, h, w, 2, peak)
-            q_bound, _ = quantize_bound_ms(x16, peak)
-            emit("timing_qconv", shape=[cin, cout, k, h, w], images=images, calls_per_forward=calls, ms=c_ms,
-                 bound_ms=bound, bound_by=by, achieved_over_bound=bound / c_ms, cudnn_bf16_ms=cudnn_ms,
-                 quantize_ms=q_ms, quantize_bound_ms=q_bound)
-            for name, val in (("ms", c_ms), ("quantize_ms", q_ms), ("bound_ms", bound),
-                              ("quantize_bound_ms", q_bound), ("cudnn_bf16_ms", cudnn_ms)):
-                totals[name] += calls * val
+            lib_ms = int_mm_ms(images, cin, cout, k, h, w, gen)
+            bound, by = qconv_bound_ms(images, cin, cout, k, h, w, 2, 2, peak)
+            row = dict(ms=ms, bound_ms=bound, cudnn_bf16_ms=cudnn_ms, library_ms=lib_ms)
+            if base_fn is not None:
+                row.update(baseline_ms=base_ms, baseline_bound_ms=unfused_bound_ms(images, cin, cout, k, h, w, 2, 2,
+                                                                                    peak))
+            emit("timing_qconv", shape=[cin, cout, k, h, w], images=images, calls_per_forward=calls, bound_by=by,
+                 achieved_over_bound=bound / ms, library="torch._int_mm: GEMM alone, im2col not counted", **row)
+            for name, val in row.items():
+                totals[name] += calls * (val or 0.0)
             if key == QCONV_HEADLINE:
-                y = qconv_ops.qconv_int8_cuda(xq, wq, scale, b, torch.float32)
-                plain_ms = cuda_ms(lambda: qconv_ops.qconv_int8_plain(xq, wq, scale, b, torch.bfloat16), iters=1,
-                                   warmup=1)
-                q_plain_ms = cuda_ms(lambda: qconv_ops.quantize_int8_plain(x16, s), iters=3, warmup=1)
-                q_err = int((qconv_ops.quantize_int8_cuda(x16, s).int()
-                             - qconv_ops.quantize_int8_plain(x16, s).int()).abs().max())
-                err = float((y - qconv_ops.qconv_int8_plain(xq, wq, scale, b, torch.float32)).abs().max())
-                headline = dict(shape=[cin, cout, k, h, w], images=images, ms=c_ms, plain_ms=plain_ms, bound_ms=bound,
-                                bound_by=by, cudnn_bf16_ms=cudnn_ms, max_abs_err=err, quantize_ms=q_ms,
-                                quantize_plain_ms=q_plain_ms, quantize_bound_ms=q_bound, quantize_max_abs_err=q_err)
-                del y
-            del x16, w16, b16, xq, wq, scale, b, w32
+                y = qconv_ops.qconv_int8_cuda(x, s, wq, packed, scale, b, torch.float32)
+                want = qconv_ops.qconv_int8_plain(qconv_ops.quantize_int8_plain(x, s), wq, scale, b, torch.float32)
+                at_batch["headline_f32_ulps"] = float(((y - want).abs() / f32_ulp(want)).max())
+                gate(at_batch["headline_f32_ulps"] <= 1.0,
+                     f"qconv_int8 {key}: float32 output {at_batch['headline_f32_ulps']} ulps off the plain epilogue")
+                plain_ms = cuda_ms(lambda: qconv_ops.qconv_int8_plain(qconv_ops.quantize_int8_plain(x16, s), wq, scale,
+                                                                      b, torch.bfloat16), iters=1, warmup=1)
+                headline = dict(shape=[cin, cout, k, h, w], images=images, plain_ms=plain_ms, bound_by=by,
+                                max_abs_err=float((y - want).abs().max()), **row)
+                del y, want
+            del x, x16, w16, b16, wq, scale, b, w32, packed
             torch.cuda.empty_cache()
     gate(headline is not None, f"the headline conv {QCONV_HEADLINE} is not in TAI_gray's int8 schedule")
+    emit("qconv_batch_checks", model="TAI_gray", batch=INT8_SERVE_B, distinct=len(counts), input="bfloat16",
+         **at_batch)
     emit("timing_qconv_forward", model="TAI_gray", batch=INT8_SERVE_B, calls=len(schedule),
          distinct=len(counts), **{f"{k}_per_forward": v for k, v in totals.items()})
     emit("qconv_kernel", wall_s=time.perf_counter() - t0)
@@ -1341,8 +1407,7 @@ def phase_serve_int8(state, gen) -> dict:
             for hk in hooks:
                 hk.remove()
         paths[f"serve_int8_{mode}"] = launches = _launch_counts()
-        _gate_launches(f"serve_int8_{mode}", launches, {"qconv_int8": len(recorded), "quantize_int8": len(recorded),
-                                                        "sepconv_fwd_mxu": 2})
+        _gate_launches(f"serve_int8_{mode}", launches, {"qconv_int8": len(recorded), "sepconv_fwd_mxu": 2})
         with uncounted():
             ulps = _calls_vs_plain(ip.model, recorded)
         got = out["pred"].float().cpu().numpy()
@@ -1399,8 +1464,7 @@ def phase_serve_int8(state, gen) -> dict:
     _reset_launch_counts()
     out, calls = int8_calls(ip.model, T, pc, fc)
     paths["serve_int8_color"] = launches = _launch_counts()
-    _gate_launches("serve_int8_color", launches, {"qconv_int8": len(calls), "quantize_int8": len(calls),
-                                                  "sepconv_fwd_mxu": 2})
+    _gate_launches("serve_int8_color", launches, {"qconv_int8": len(calls), "sepconv_fwd_mxu": 2})
     finite = bool(torch.isfinite(out["pred"]).all())
     gate(finite, "serve_int8_color: non-finite pred")
     flt = VideoInpainter("TAI_color", color, device="cuda", dtype=torch.bfloat16)
@@ -1467,9 +1531,8 @@ def phase_predict_int8(root: str, videolist: str, per_forward: int) -> dict:
         paths[path] = launches = _launch_counts()
         pngs = _pngs(qual)
         batches = -(-clips // batch)
-        want = {"calibration": {"qconv_int8": per_forward if n_cal else 0, "quantize_int8": per_forward if n_cal else 0,
-                                "sepconv_fwd_mxu": 2 if n_cal else 0},
-                "gate": {"qconv_int8": per_forward, "quantize_int8": per_forward, "sepconv_fwd_mxu": 4}}
+        want = {"calibration": {"qconv_int8": per_forward if n_cal else 0, "sepconv_fwd_mxu": 2 if n_cal else 0},
+                "gate": {"qconv_int8": per_forward, "sepconv_fwd_mxu": 4}}
         total = {k: sum(w.get(k, 0) for w in want.values()) + (per_forward * batches if k in QKERNELS else 0)
                  for k in COUNTED}
         total["sepconv_fwd_mxu"] += 2 * batches
@@ -2259,8 +2322,8 @@ def check_ddp_predict(root: str, ranks: list, per_forward: int, card: str) -> di
                                    for q in ("ddp_qual_int8", "qual_predict_int8"))))
     for i, rec in enumerate(int8):
         paths[f"ddp_predict_int8_rank{i}"] = rec["launches"]
-        cal = {"qconv_int8": per_forward, "quantize_int8": per_forward, "sepconv_fwd_mxu": 2} if i == 0 else {}
-        gate_q = {"qconv_int8": per_forward, "quantize_int8": per_forward, "sepconv_fwd_mxu": 4} if i == 0 else {}
+        cal = {"qconv_int8": per_forward, "sepconv_fwd_mxu": 2} if i == 0 else {}
+        gate_q = {"qconv_int8": per_forward, "sepconv_fwd_mxu": 4} if i == 0 else {}
         want = {k: cal.get(k, 0) + gate_q.get(k, 0) + (per_forward if k in QKERNELS else 0) for k in COUNTED}
         want["sepconv_fwd_mxu"] += 2
         _gate_launches(f"ddp_predict int8 rank {i}", rec["launches"], want)
@@ -2772,23 +2835,23 @@ def phase_timing(state, peak, main_err: dict, adj_err: dict, path_launches: dict
             "color_bound_ms": cbound16, "color_bound_by": cby16, "color_ms_f32": c32, "color_plain_ms_f32": cplain32,
             "color_bound_ms_f32": cbound32, "color_bound_by_f32": cby32, **baseline_keys,
         })
-    # The int8 kernels: no TPU kernel (vfi_tpu left the int8 conv to XLA);
-    # timed at QCONV_HEADLINE, with the sums over one B=64 TAI_gray forward.
+    # The int8 kernel: no TPU kernel (vfi_tpu left the int8 conv and its
+    # quantize to XLA); timed at QCONV_HEADLINE, with the sums over one B=64
+    # TAI_gray forward.
     h, t = qconv["headline"], qconv["totals"]
-    for name, replaces, keys in (
-            ("qconv_int8", "vfi_tpu/nn/quant.py:114", dict(
-                max_abs_err=h["max_abs_err"], ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
-                bound_by=h["bound_by"], cudnn_bf16_ms=h["cudnn_bf16_ms"], ms_per_forward=t["ms"],
-                bound_ms_per_forward=t["bound_ms"], cudnn_bf16_ms_per_forward=t["cudnn_bf16_ms"])),
-            ("quantize_int8", "vfi_tpu/nn/quant.py:110", dict(
-                max_abs_err=h["quantize_max_abs_err"], ms=h["quantize_ms"], plain_ms=h["quantize_plain_ms"],
-                bound_ms=h["quantize_bound_ms"], bound_by="bytes", ms_per_forward=t["quantize_ms"],
-                bound_ms_per_forward=t["quantize_bound_ms"]))):
-        total, by_path = launches(name)
-        kernels.append({"name": name, "route": "cuda", "source": "vfi_tpu_torch/ops/csrc/qconv_int8.cu",
-                        "replaces": replaces, "replaces_what": "XLA's int8 conv and its quantize (no Pallas kernel)",
-                        "launches": total, "launches_by_path": by_path, "library_ms": None, **keys,
-                        "shape": h["shape"], "images": h["images"], "dtype": "bfloat16 in, int8, bfloat16 out"})
+    total, by_path = launches("qconv_int8")
+    kernels.append({
+        "name": "qconv_int8", "route": "cuda", "source": "vfi_tpu_torch/ops/csrc/qconv_int8.cu",
+        "replaces": "vfi_tpu/nn/quant.py:110", "replaces_what": "XLA's activation quantize, int8 conv and dequantize "
+        "(vfi_tpu/nn/quant.py:110-123; no Pallas kernel)", "launches": total, "launches_by_path": by_path,
+        "max_abs_err": h["max_abs_err"], "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+        "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+        "library": "torch._int_mm on the implicit GEMM's operands: GEMM alone, im2col not counted",
+        "cudnn_bf16_ms": h["cudnn_bf16_ms"], "shape": h["shape"], "images": h["images"],
+        "dtype": "bfloat16 in, bfloat16 out", **{f"{k}_per_forward": v for k, v in t.items()},
+        **({} if "baseline_ms" not in h else {"baseline_ms": h["baseline_ms"],
+                                              "baseline_bound_ms": h["baseline_bound_ms"]}),
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
@@ -2891,6 +2954,7 @@ def baseline_kernels(checkout: str) -> dict:
             lambda k: build_library(os.path.join(csrc, f"{k}.cu"), out_dir, k, _kernels._N_TENSORS[k]), KERNELS)))
     emit("baseline_build", checkout=checkout, ptxas={k: log for k, (_, log) in built.items()})
     (fm, _), (fd, _), (vh, _), (bx, _) = (built[k] for k in KERNELS)
+    qconv = baseline_qconv(checkout, out_dir)
 
     def forward(fn):
         def run(x, v, h):
@@ -2911,7 +2975,43 @@ def baseline_kernels(checkout: str) -> dict:
         return gx
 
     return {"sepconv_fwd_mxu": forward(fm), "sepconv_fwd": forward(fd), "sepconv_bwd_vh": bwd_vh,
-            "sepconv_bwd_x": bwd_x}
+            "sepconv_bwd_x": bwd_x, **({} if qconv is None else {"qconv_int8": qconv})}
+
+
+def baseline_qconv(checkout: str, out_dir: str):
+    """The int8 kernels of another checkout whose ``ops/csrc/qconv_int8.cu``
+    has the unfused int8 version's two C entries (a quantize pass to NHWC int8,
+    then the conv on it), built into ``out_dir`` and wrapped as (x bfloat16,
+    x_scale, wq, scale, bias) -> y bfloat16; None for a checkout without
+    them."""
+    import ctypes
+
+    src = os.path.join(checkout, "vfi_tpu_torch", "ops", "csrc", "qconv_int8.cu")
+    if not os.path.exists(src) or 'extern "C" int quantize_int8(' not in open(src).read():
+        return None
+    so = os.path.join(out_dir, "libqconv_int8_baseline.so")
+    proc = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", so, src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: {src} failed to build:\n{proc.stdout + proc.stderr}")
+    lib = ctypes.CDLL(so)
+    P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.quantize_int8.argtypes = [P] * 3 + [I64] * 4 + [I] * 6 + [P]
+    lib.qconv_int8.argtypes = [P] * 5 + [I] * 7 + [P]
+
+    def run(x, x_scale, wq, scale, bias):
+        N, C, H, W = x.shape
+        Co, k, _, Cp = wq.shape
+        xq = torch.empty((N, H, W, Cp), dtype=torch.int8, device=x.device)
+        y = torch.empty((N, Co, H, W), dtype=torch.bfloat16, device=x.device)
+        st = torch.cuda.current_stream().cuda_stream
+        rc = lib.quantize_int8(x.data_ptr(), x_scale.data_ptr(), xq.data_ptr(), *x.stride(), N, C, H, W, Cp, 1, st)
+        rc = rc or lib.qconv_int8(xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), N, H,
+                                  W, Cp, Co, k, 2, st)
+        if rc != 0:
+            raise SystemExit(f"chip_smoke: the baseline's int8 kernels failed: CUDA error {rc}")
+        return y
+
+    return run
 
 
 def _serve_timing(ip, key, impl, dtype, B, T, H, W, C, gen) -> None:
@@ -2930,8 +3030,10 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.")
     ap.add_argument("--baseline", metavar="CHECKOUT",
-                    help="another checkout of this repo (an earlier commit): time its four kernels in turns "
-                         "with these, as baseline_* keys of the timing_kernel and kernels lines")
+                    help="another checkout of this repo (an earlier commit): time its four sepconv kernels, "
+                         "and its int8 quantize + conv where it has the unfused quantize_int8 and qconv_int8 entries, "
+                         "in turns with these, "
+                         "as baseline_* keys of the timing_kernel, timing_qconv and kernels lines")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU", file=sys.stderr)
@@ -2950,11 +3052,17 @@ def main(argv) -> int:
     ptxas = {n: [ln.strip() for ln in _kernels.build_log(n).splitlines() if "registers" in ln or "spill" in ln]
              for n in _kernels.SOURCES}
     emit("build", seconds=seconds, wall_s=time.perf_counter() - t0, ptxas=ptxas)
-    gate(sorted(_kernels.SOURCES) == sorted(KERNELS + ("qconv_int8",)),
+    gate(sorted(_kernels.SOURCES) == sorted(KERNELS + QKERNELS),
          f"built {sorted(_kernels.SOURCES)}, the paths run {KERNELS + QKERNELS}")
     spills = {n: [ln for ln in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
               for n, lines in ptxas.items()}
     gate(not any(spills.values()), f"ptxas reports spills: {spills}")
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_kernels.library_path("qconv_int8"))], capture_output=True,
+                          text=True, timeout=600).stdout
+    gmma = sorted({ln.split()[1] for ln in sass.splitlines() if "GMMA" in ln and len(ln.split()) > 1})
+    emit("qconv_sass", warpgroup_mma=gmma, lines=sum("GMMA" in ln for ln in sass.splitlines()))
+    gate(any(op.startswith("IGMMA") for op in gmma), "qconv_int8's SASS holds no int8 warpgroup MMA (IGMMA)")
     baseline = baseline_kernels(os.path.abspath(args.baseline)) if args.baseline else None
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2964,7 +3072,7 @@ def main(argv) -> int:
     paths = {"serve": phase_serve(state), "serve_pallas": phase_serve(state, "pallas"),
              "serve_color": phase_serve_color()}
     schedule = int8_schedule(state)
-    qconv_numbers = phase_qconv_kernel(gen, peak, schedule)
+    qconv_numbers = phase_qconv_kernel(gen, peak, schedule, baseline)
     paths.update(phase_serve_int8(state, gen))
     # The predict phases' snapshot, clips and trees stay for the ddp phases.
     predict_root = os.path.join(str(_kernels.BUILD_DIR), "predict_smoke")

@@ -15,10 +15,14 @@ call (dynamic), given the port's input, within 1e-6 of vfi_tpu's QConv, and
 part where float noise flips one int8 rounding in the rollout, which
 re-quantizes its own predictions, so max-abs is reported, not gated.  The
 predict CLI: ``--quantize int8_dynamic`` against vfi_tpu's
-``cli/predict.py`` (run in this process) on a converted snapshot, PNGs
-within 1 uint8 level; ``--quantize int8`` against the port's own
-calibrate-then-forward; the ``--validate_quant`` gate's refuse, force and
-skip.
+``cli/predict.py`` on a converted snapshot, PNGs within 1 uint8 level;
+``--quantize int8`` against the port's own calibrate-then-forward; the
+``--validate_quant`` gate's refuse, force and skip.
+
+vfi_tpu's toy TAI forwards and its predict CLI's PNGs are computed once, by
+tests/make_torch_quant_golden.py on this module's inputs, and read from
+tests/torch_golden_quant_toy.npz; the per-call comparisons run vfi_tpu's
+QConv here, on the port's recorded inputs.
 """
 
 import functools
@@ -54,6 +58,9 @@ from . import torch_threads  # noqa: F401  (one torch thread per xdist worker)
 from .test_torch_predict import jax_snapshot
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+# vfi_tpu's side of the toy TAI fixture and of the predict CLI test, on this
+# module's inputs (tests/make_torch_quant_golden.py).
+GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_quant_toy.npz")
 # The toy TAI of tests/test_quant.py's test_tai_forward_int8_static_close_to_f32.
 TAI = {"class": "TAIFillInModel", "args": [],
        "kwargs": dict(gf_dim=8, c_dim=1, feature_size=3, ks=5, num_block=5, kf_dim=4)}
@@ -193,26 +200,32 @@ def _tai_inputs():
 
 
 @pytest.fixture(scope="module")
-def tai_jax():
-    """vfi_tpu's toy TAI (random_jax_params seed 0) under VFI_INT8=2 and =1:
-    the "quant" collection calibrated from zero (flax creates it at 0.0 in a
+def golden():
+    g = np.load(GOLDEN_PATH)
+    assert int(g["tai_param_seed"]) == 0 and json.loads(str(g["cli"])) == CLI_META, \
+        "tests/torch_golden_quant_toy.npz was made on other inputs: rerun tests/make_torch_quant_golden.py"
+    return g
+
+
+@pytest.fixture(scope="module")
+def tai_jax(golden):
+    """vfi_tpu's toy TAI (random_jax_params seed 0) under VFI_INT8=2 and =1,
+    as tests/make_torch_quant_golden.py computed it on ``_tai_inputs``: the
+    "quant" collection calibrated from zero (flax creates it at 0.0 in a
     mutable apply) on the inputs, the static forward with it, the dynamic
-    forward, and the dynamic program's int8 convs."""
-    params = random_jax_params(TAI, 0)
-    p, f = _tai_inputs()
-    model = jax_create_model(json.dumps(TAI))
-    T = 3
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("VFI_INT8", "2")
-        calib = jax.jit(lambda prm: model.apply({"params": prm}, T, p, f, mutable=["quant"])[1]["quant"])(params)
-        static = jax.jit(lambda prm, q: model.apply({"params": prm, "quant": q}, T, p, f))(params, calib)
-        mp.setenv("VFI_INT8", "1")
-        traced = jax.jit(lambda prm: model.apply({"params": prm}, T, p, f)).trace(params)
-        calls = _int8_conv_inputs(traced.jaxpr.jaxpr)
-        dynamic = traced.lower().compile()(params)
-    return dict(params=params, quant=jax.device_get(calib), calls=calls,
-                static={k: np.asarray(static[k]) for k in PRED_KEYS},
-                dynamic={k: np.asarray(dynamic[k]) for k in PRED_KEYS})
+    forward, and the dynamic program's int8 convs; with the params."""
+    quant_tree = {}
+    for key in golden.files:
+        if key.startswith("amax/"):
+            node = quant_tree
+            *path, leaf = key.split("/")[1:]
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = golden[key]
+    return dict(params=random_jax_params(TAI, 0), quant=quant_tree,
+                calls=[tuple(int(d) for d in c) for c in golden["calls"]],
+                static={k: golden[f"static/{k}"] for k in PRED_KEYS},
+                dynamic={k: golden[f"dynamic/{k}"] for k in PRED_KEYS})
 
 
 def _forward_by_call(m, *args):
@@ -363,6 +376,8 @@ def test_vfi_int8_at_create_model(mode, monkeypatch):
 K = T = F = 2
 HW, N_CLIPS, BATCH = 32, 3, 2
 NAME = "toy_tai_int8"
+CLI_META = dict(K=K, T=T, F=F, HW=HW, clips=N_CLIPS, batch=BATCH, clip_seed=5, snapshot_seed=9)
+CLI_DYNAMIC = ("--quantize", "int8_dynamic", "--validate_quant", "0", "--device_normalize")
 
 
 def _args(root, qual, ckpt, *extra):
@@ -372,17 +387,21 @@ def _args(root, qual, ckpt, *extra):
             "--qual_result_root", qual, "--num_threads", "0", *extra]
 
 
-@pytest.fixture(scope="module")
-def cli_root(tmp_path_factory):
-    """A vfi_tpu snapshot (random weights), its conversion, the clips."""
-    root = str(tmp_path_factory.mktemp("int8_predict"))
-    lst = make_videolist(os.path.join(root, "clips"), N_CLIPS, seed=5, n_frames=K + T + F, hw=HW)
+def make_cli_root(root: str) -> str:
+    """Into ``root``: a vfi_tpu snapshot (random weights), its conversion,
+    the clips and their list."""
+    lst = make_videolist(os.path.join(root, "clips"), N_CLIPS, seed=CLI_META["clip_seed"], n_frames=K + T + F, hw=HW)
     os.replace(lst, os.path.join(root, "list.txt"))
     raw = jax_snapshot(os.path.join(root, "ckpt_jax", NAME), "model_best.ckpt", TAI,
-                       TrainConfig(K=K, T=T, F=F, df_dim=8, Ip=1), HW, seed=9)
+                       TrainConfig(K=K, T=T, F=F, df_dim=8, Ip=1), HW, seed=CLI_META["snapshot_seed"])
     tckpt.write_payload(os.path.join(root, "ckpt_torch", NAME), "model_best.ckpt",
                         to_torch_payload(raw["state"], raw["counters"], json.dumps(TAI)))
     return root
+
+
+@pytest.fixture(scope="module")
+def cli_root(tmp_path_factory):
+    return make_cli_root(str(tmp_path_factory.mktemp("int8_predict")))
 
 
 def _pred_pngs(qual):
@@ -391,22 +410,14 @@ def _pred_pngs(qual):
             if name.startswith("pred_middle_")}
 
 
-def test_predict_int8_dynamic_matches_vfi_tpu(cli_root, monkeypatch):
-    """vfi_tpu's cli/predict.py runs in this process (its VFI_INT8 put back
-    after), on the vfi_tpu snapshot; the port on its conversion."""
-    import importlib.util
-
-    extra = ["--quantize", "int8_dynamic", "--validate_quant", "0", "--device_normalize"]
-    qual_jax = os.path.join(cli_root, "qual_jax")
-    spec = importlib.util.spec_from_file_location("vfi_tpu_predict_cli", os.path.join(REPO, "cli", "predict.py"))
-    jax_predict = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(jax_predict)
-    monkeypatch.setenv("VFI_INT8", "0")
-    jax_predict.main(_args(cli_root, qual_jax, "ckpt_jax", *extra))
-    monkeypatch.delenv("VFI_INT8")
+def test_predict_int8_dynamic_matches_vfi_tpu(cli_root, golden):
+    """vfi_tpu's cli/predict.py on the vfi_tpu snapshot (its PNGs from
+    tests/make_torch_quant_golden.py, which runs it in its process on this
+    module's ``cli_root``); the port on its conversion."""
     qual = os.path.join(cli_root, "qual_dynamic")
-    predict.main(_args(cli_root, qual, "ckpt_torch", *extra, "--device", "cpu"))
-    got, want = _pred_pngs(qual), _pred_pngs(qual_jax)
+    predict.main(_args(cli_root, qual, "ckpt_torch", *CLI_DYNAMIC, "--device", "cpu"))
+    got = _pred_pngs(qual)
+    want = {tuple(k.split("/")[1:]): golden[k].astype(np.int16) for k in golden.files if k.startswith("png/")}
     assert sorted(got) == sorted(want) and len(got) == N_CLIPS * T
     worst = max(int(np.abs(got[k] - want[k]).max()) for k in want)
     assert worst <= 1, worst

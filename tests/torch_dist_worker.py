@@ -17,6 +17,7 @@ from vfi_tpu_torch.models.registry import create_model
 from vfi_tpu_torch.parallel import mesh
 from vfi_tpu_torch.train.environments import create_training_environment, mean_terms
 from vfi_tpu_torch.utils.config import TrainConfig
+from . import torch_threads  # noqa: F401  (one torch thread a rank: the ranks inherit PYTEST_XDIST_WORKER)
 
 TIMEOUT = datetime.timedelta(seconds=120)
 # The toy TAI of tests/_mp_worker.py.

@@ -23,7 +23,8 @@ the discriminator keep float convs.  Both schemes are symmetric:
 
 The conv is int8 x int8 with int32 sums, dequantized as
 ``float(acc) * (x_scale * w_scale[c]) + b`` in float32 and cast to x's dtype
-(``ops/qconv.py``: plain versions on the CPU, hand-written kernels on CUDA).
+(``ops/qconv.py``: plain versions on the CPU; on CUDA one hand-written
+kernel a call, the activation quantize fused into it).
 Serving only: the rounding has a zero gradient, and the training
 environments refuse ``VFI_INT8``.
 """
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.qconv import padded_channels, qconv_int8, quantize_int8
+from ..ops.qconv import n_tile, pack_weight, padded_channels, qconv_int8
 from .discriminator import SNDiscriminator
 from .layers import Conv
 from .vgg import VGG16Features
@@ -83,6 +84,7 @@ class QConv(Conv):
         self.register_buffer("act_amax", torch.zeros((), dtype=torch.float32, device=self.weight.device),
                              persistent=False)
         self._wq = None  # (key, wq [Co, k, k, Cp] int8, w_scale [Co] float32)
+        self._packed = None  # (key, wq repacked for the CUDA kernel)
 
     def _apply(self, fn, recurse=True):
         # Module.to casts floating buffers; the amax stays float32 (vfi_tpu
@@ -92,7 +94,7 @@ class QConv(Conv):
             super()._apply(fn, recurse)
         finally:
             self._buffers["act_amax"] = amax.to(self.weight.device)
-        self._wq = None
+        self._wq = self._packed = None
         return self
 
     def quantized_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,6 +109,14 @@ class QConv(Conv):
             self._wq = (key, q, scale.reshape(-1))
         return self._wq[1], self._wq[2]
 
+    def packed_weight(self) -> torch.Tensor:
+        """The current ``wq`` as the CUDA kernel reads it (``ops.qconv.pack_weight``),
+        repacked once per weight version."""
+        wq, _ = self.quantized_weight()
+        if self._packed is None or self._packed[0] != self._wq[0]:
+            self._packed = (self._wq[0], pack_weight(wq, n_tile(wq.shape[0])))
+        return self._packed[1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.static:
             if self.calibrating:
@@ -116,7 +126,8 @@ class QConv(Conv):
             amax = _abs_max(x)
         x_scale = torch.clamp_min(amax * INV_127, EPS)
         wq, w_scale = self.quantized_weight()
-        return qconv_int8(quantize_int8(x, x_scale), wq, x_scale * w_scale, self.bias.detach().float(), x.dtype)
+        packed = self.packed_weight() if x.device.type == "cuda" else None
+        return qconv_int8(x, x_scale, wq, x_scale * w_scale, self.bias.detach().float(), x.dtype, packed)
 
 
 def _convs(module: nn.Module, prefix: str = "") -> Iterator[Tuple[str, nn.Module]]:

@@ -20,8 +20,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+# --split-compile=0 optimizes a source's kernels in parallel (the int8 conv
+# instantiates 20: 5 N tiles x 4 kernel sizes).  No source needs a link flag:
+# the int8 conv's weight copies are cp.async.bulk, which takes no tensor map.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 SOURCES = {
     "sepconv_fwd": "sepconv_fwd.cu",
     "sepconv_fwd_mxu": "sepconv_fwd_mxu.cu",
@@ -133,26 +136,23 @@ def launch(name: str, tensors, B: int, H: int, W: int, C: int, ks: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({lib.sepconv_error_string(rc).decode()})")
 
 
-# Argument types of the int8 conv library's two C entries
-# (csrc/qconv_int8.cu): pointers, 64-bit strides, ints, the stream last.
-_QCONV_ARGS = {
-    "quantize_int8": ["p"] * 3 + ["i64"] * 4 + ["i"] * 6 + ["p"],
-    "qconv_int8": ["p"] * 5 + ["i"] * 7 + ["p"],
-}
+# Argument types of the int8 conv library's C entry (csrc/qconv_int8.cu):
+# x, x_scale, packed weights, scale, bias, out; x's four element strides;
+# N, C, H, W, Co, k, the N tile, the two dtype codes; the stream.
+_QCONV_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
-def qconv_launch(entry: str, *args) -> None:
-    """Call ``entry`` of the int8 conv library (``quantize_int8`` or
-    ``qconv_int8``; pointers and sizes already checked by the wrapper in
-    ``ops/qconv.py``) on the current stream; raises on a non-zero CUDA error."""
+def qconv_launch(*args) -> None:
+    """Call the int8 conv library's ``qconv_int8`` (pointers and sizes
+    already checked by the wrapper in ``ops/qconv.py``) on the current
+    stream; raises on a non-zero CUDA error."""
     lib = _load("qconv_int8")
-    fn = getattr(lib, entry)
+    fn = lib.qconv_int8
     if fn.argtypes is None:
-        kinds = {"p": ctypes.c_void_p, "i64": ctypes.c_int64, "i": ctypes.c_int}
-        fn.argtypes = [kinds[k] for k in _QCONV_ARGS[entry]]
+        fn.argtypes = _QCONV_ARGTYPES
         fn.restype = ctypes.c_int
         lib.qconv_error_string.argtypes = [ctypes.c_int]
         lib.qconv_error_string.restype = ctypes.c_char_p
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({lib.qconv_error_string(rc).decode()})")
+        raise RuntimeError(f"qconv_int8 launch failed: CUDA error {rc} ({lib.qconv_error_string(rc).decode()})")

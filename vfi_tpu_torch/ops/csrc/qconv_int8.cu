@@ -1,48 +1,70 @@
-// int8 serving convolution, for sm_90a (H100): the activation quantize and the
-// int8 x int8 -> int32 'same' convolution with its dequantizing epilogue.
+// int8 serving convolution for sm_90a (H100): the activation quantize fused
+// into an int8 x int8 -> int32 'same' convolution with its dequantizing
+// epilogue, one launch per conv call.
 //
 // Replaces what XLA computes for vfi_tpu's int8 serving mode (VFI_INT8=1/2),
-// vfi_tpu/nn/quant.py:101-123: the activation quantize
-// q = clip(round(x / x_scale), -127, 127) and
-// lax.conv_general_dilated(xq, wq, preferred_element_type=int32), then
+// vfi_tpu/nn/quant.py:96-123: q = clip(round(x / x_scale), -127, 127),
+// lax.conv_general_dilated(q, wq, preferred_element_type=int32), then
 // y = float(acc) * (x_scale * w_scale[c]) + b, cast to x's dtype.  vfi_tpu
 // wrote no Pallas for it; PyTorch has no int8 convolution on CUDA.
 //
-// quantize_int8: x NCHW (float32 or bfloat16, any element strides) -> xq NHWC
-// int8 with the channels zero-padded to Cp (a multiple of 32, the K granule of
-// the conv).  The scale is read from a device float32 scalar, so a dynamic
-// scale (an amax reduced on the card) costs no host sync.  q is
-// __float2int_rn(__fdiv_rn(x, s)) clamped to +-127: IEEE division, round half
-// to even, as jnp.round and torch.round.  Each block transposes a tile of 32
-// channels x 32 columns of one row through shared memory, so that the reads
-// run along x and the writes along the channels.  Bound: bytes (x read once,
-// xq written once).
+// Arithmetic (as the plain versions in ops/qconv.py): q is
+// round_half_even(fl(x / s)) clamped to +-127, s read from a device float32
+// scalar so that a dynamic scale costs no host sync (computed as x * fl(1/s),
+// with the IEEE division wherever that product lies near a rounding
+// boundary: see `quantize_fast`); the sum over k*k*Cp is exact in int32 (|acc| <=
+// 127^2 * 49 * 1024 < 2^31); the epilogue is __fadd_rn(__fmul_rn(
+// __int2float_rn(acc), scale[c]), bias[c]) in float32, scale[c] = x_scale *
+// w_scale[c] formed by the caller, written NCHW in float32 or bfloat16, or
+// the int32 sums as they are (the exact check).  Stride 1, zero padding k/2,
+// odd k in {1, 3, 5, 7}, any C_in and C_out.
 //
-// qconv_int8: stride 1, 'same' zero padding, odd k in {1, 3, 5, 7}.  An
-// implicit GEMM with M = output pixels, N = output channels and K = k*k*Cp, on
-// mma.sync m16n8k32 s8 x s8 -> s32.  A block takes a patch of 128 output
-// pixels of one image (8x16, 16x8 or 32x4 as the width allows) and 64 output
-// channels; its 8 warps are 4 (pixels) x 2 (channels), each 32 x 32.  Per
-// chunk of 32 input channels it stages, by 16-byte cp.async copies with zero
-// fill, the patch's input with its halo, (PH+k-1) x (PW+k-1) positions of 32
-// bytes (out-of-image taps are zeros), and the chunk's weights of every tap,
-// [k*k][64][32 bytes] (output channels past C_out are zeros); two stages, so
-// the next chunk's copies overlap this chunk's products.  Every tap then reads
-// its A fragments from the staged halo at the tap's offset: the input crosses
-// device memory about once per output-channel tile, not k*k times.  Rows of
-// 32 bytes swap their two 16-byte halves on bit 2 of the row index, so the 8
-// rows a fragment load touches hit distinct banks.  Epilogue in float32,
-// __fadd_rn(__fmul_rn(__int2float_rn(acc), scale[c]), bias[c]) with
-// scale[c] = x_scale * w_scale[c] formed by the caller, written NCHW in the
-// output dtype; or the int32 sums as they are (the exact check).
-// |acc| <= 127^2 * k*k * Cp, 7.9e8 at k=7 and Cp=1024: it fits in int32.
+// Design.  An implicit GEMM (M = output pixels, N = output channels, K =
+// k*k*Cp) on wgmma.mma_async m64nNk32 .s32.s8.s8, both operands K-major in
+// shared memory, no swizzle.  N is one of 8, 32, 64, 128, 256 (the smallest
+// that covers C_out, 256 above).  A persistent block (one per SM) is two
+// consumer warpgroups and a producer warpgroup; it walks work items of
+// 2 * MT m64 tiles and one N tile.  An m64 tile is 8 x 8 output pixels of one
+// image, so an 8x8 map is covered exactly and no map pays for a wider patch;
+// each consumer warpgroup owns MT of them (MT = 1 at N = 256, else 2).
+//  - A, from its own halo buffers, no im2col.  Per 32-channel chunk a
+//    warpgroup stages each tile's halo, (8+k-1)^2 positions, as [k-half][halo
+//    row][halo col][16 B]: 8 neighbouring output pixels of a row at one tap
+//    are then one 8 x 16 B core matrix, the tile's 8 rows sit one halo row
+//    apart (SBO), the two k-halves one half-buffer apart (LBO), and a tap
+//    (ky, kx) is only a shift of the descriptor's start address by
+//    (ky*(8+k-1) + kx) * 16 B; the halo is read by all k*k taps.
+//  - The staging is the quantize: the warpgroup's threads read x (NCHW
+//    float32 or bfloat16, any element strides; zeros off the image and past
+//    C), quantize, and write the int8 bytes into the layout above, so the
+//    int8 activation never lands in device memory.  Where x's rows are
+//    contiguous and 16-byte aligned (W a multiple of 8) a thread reads one
+//    channel's halo row as 16-byte loads, 4 (bfloat16) or 2 (float32) rows in
+//    flight, and writes its k+7 bytes 16 bytes apart; else it reads 16
+//    channels of one position with scalar loads.  The next chunk (or the next
+//    item's first) is staged into the warpgroup's second buffer at the
+//    chunk's second step, while two wgmma groups run.
+//  - B, the weights, repacked once per weight by the wrapper as
+//    [Cp/32][k*k][Co_pad/8][2][8][16 B] (an N tile of one tap is one run of
+//    N*32 bytes in core-matrix order: LBO 128 B, SBO 256 B), reach a ring of
+//    `depth` stages, one kernel row (k taps) each, by cp.async.bulk copies
+//    that one producer thread issues against mbarriers; the consumers give a
+//    stage back once the wgmma group that read it has completed
+//    (wgmma.wait_group 1).  The producer warpgroup gives its registers to the
+//    consumers (setmaxnreg 40 / 232).
+//  - The epilogue passes 32 output channels at a time through shared memory,
+//    so that each thread writes 8 neighbouring pixels of one row with 16-byte
+//    stores along x.
 //
-// Bound, at TAI_gray's shapes: operations for the wide convs (2*MAC over
-// 1979 TOP/s of dense int8), bytes for the narrow ones (xq, wq and the output
-// over 3.35 TB/s).  This first kernel reads its fragments with 32-bit shared
-// loads (16 per 8 mma per warp per tap), which holds it at about half of the
-// mma.sync rate at best; wgmma and a quantize fused into the producer's
-// epilogue are the next steps (ROADMAP.md queue 2).
+// Bound (chip_smoke.qconv_bound_ms): 2 * MAC of the unpadded channels over
+// 1979 TOP/s of dense int8, or x, wq and the output once over 3.35 TB/s.
+// What holds it back, as built (PERF.md): the staging, which runs in the
+// consumer warps between their wgmma groups and shows most where the N tile
+// is small (C_out <= 64 at 128x128); channels padded to 32 (C_in = 1 costs
+// 32 times its work); at small batches, too few items.
+// TMA tensor copies of the halo (cp.async.bulk.tensor) raised
+// cudaErrorIllegalInstruction on the H100 of PERF.md's measurements, even
+// in a minimal kernel, so the halo is read with plain loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,287 +73,688 @@
 
 namespace {
 
-constexpr int BM = 128;  // output pixels per block
-constexpr int BN = 64;   // output channels per block
-constexpr int WARPS_M = 4, WARPS_N = 2;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int CHUNK = 32;  // input channels per k-step: the depth of one m16n8k32
+constexpr int CHUNK = 32;       // input channels per k-step: the K depth of one wgmma m64nNk32 s8
+constexpr int TILE = 8;         // an m64 tile is TILE x TILE output pixels
+constexpr int CONSUMERS = 2;    // consumer warpgroups a block
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // and one producer warpgroup
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // setmaxnreg: 128 * 40 + 256 * 232 <= 65536
+constexpr int EPI_CH = 32;      // output channels per epilogue pass
+constexpr int MAX_DEPTH = 4;    // weight stages in the ring, at most
+constexpr int BAR_BYTES = 128;  // the weight ring's 2 * MAX_DEPTH mbarriers, padded
 constexpr size_t SMEM_MAX = 232448;  // the most dynamic shared memory a block may use
 
-// Byte offset of 16-byte half `h` of 32-byte row `p`, halves swapped on bit 2 of p.
-__device__ __forceinline__ int swz(int p, int h) { return (p << 5) + ((h ^ ((p >> 2) & 1)) << 4); }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ unsigned lds32(const unsigned char* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// d += a * b: A 16x32 (row), B 32x8 (col), s8 in, s32 sums.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float to_float(float a) { return a; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 a) { return __bfloat162float(a); }
-
-__device__ __forceinline__ void store(int* p, int acc, float, float) { *p = acc; }
-__device__ __forceinline__ void store(float* p, int acc, float s, float b) {
-  *p = __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
-}
-__device__ __forceinline__ void store(__nv_bfloat16* p, int acc, float s, float b) {
-  *p = __float2bfloat16_rn(__fadd_rn(__fmul_rn(__int2float_rn(acc), s), b));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-quantize_int8_kernel(const T* __restrict__ x, const float* __restrict__ scale, int8_t* __restrict__ out,
-                     long long sn, long long sc, long long sy, long long sx, int C, int H, int W, int Cp,
-                     int tiles_x) {
-  __shared__ int8_t tile[32][33];  // [channel][column]
-  const int chunks = Cp / 32;
-  long long bid = blockIdx.x;
-  const int tx = int(bid % tiles_x);
-  bid /= tiles_x;
-  const int chunk = int(bid % chunks);
-  const long long n = bid / chunks;
-  const int y = blockIdx.y, x0 = tx * 32, c0 = chunk * 32;
-  const float s = *scale;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int cl = threadIdx.y + 8 * i, c = c0 + cl, xx = x0 + threadIdx.x;
-    int q = 0;
-    if (c < C && xx < W) {
-      q = __float2int_rn(__fdiv_rn(to_float(x[n * sn + c * sc + y * sy + xx * sx]), s));
-      q = min(127, max(-127, q));
-    }
-    tile[cl][threadIdx.x] = static_cast<int8_t>(q);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int xl = threadIdx.y + 8 * i, xx = x0 + xl;
-    if (xx < W) out[((n * H + y) * W + xx) * Cp + c0 + threadIdx.x] = tile[threadIdx.x][xl];
-  }
-}
-
-struct Patch {
-  int pw_log2, ph, halo_w, halo_pos;
+template <int BN>
+struct Tiles {
+  static constexpr int MT = BN == 256 ? 1 : 2;  // m64 tiles per consumer warpgroup
+  static constexpr int CG = BN < EPI_CH ? BN : EPI_CH;
+  static constexpr int RS = 64 * MT + 4;  // epilogue words per channel: 4 spare, no bank conflicts
 };
 
-__host__ __device__ inline Patch patch(int W, int k) {
-  Patch p;
-  p.pw_log2 = W >= 16 ? 4 : (W > 4 ? 3 : 2);
-  p.ph = BM >> p.pw_log2;
-  p.halo_w = (1 << p.pw_log2) + k - 1;
-  p.halo_pos = (p.ph + k - 1) * p.halo_w;
-  return p;
+// Shared memory: [mbarriers][weight ring][halo buffers][epilogue];
+// ops/qconv.py:qconv_tiles computes the same sizes for the CPU emulation.
+struct Layout {
+  int halo_w, halo;
+  size_t stage, ring, tile, a, epi, total;
+};
+
+__host__ __device__ inline Layout layout(int bn, int mt, int cg, int k, int depth) {
+  Layout l;
+  l.halo_w = TILE + k - 1;
+  l.halo = l.halo_w * l.halo_w;
+  l.stage = size_t(k) * bn * CHUNK;
+  l.ring = l.stage * depth;
+  l.tile = size_t(2) * l.halo * 16;  // one m64 tile's halo of one chunk, both k-halves
+  l.a = 2 * CONSUMERS * mt * l.tile;  // each warpgroup's two halo buffers
+  l.epi = size_t(CONSUMERS) * cg * (64 * mt + 4) * 4;
+  l.total = BAR_BYTES + l.ring + l.a + l.epi;
+  return l;
 }
 
-__host__ __device__ inline size_t stage_bytes(const Patch& p, int k) {
-  return size_t(p.halo_pos + k * k * BN) * 32;
+struct Params {
+  const void* x;
+  const float* x_scale;
+  const int8_t* w;
+  const float* scale;
+  const float* bias;
+  void* out;
+  long long sn, sc, sy, sx;
+  int C, H, W, Co, co_pad, k, chunks, tiles_x, tiles_y, m_total, n_tiles, items, depth, in_bf16, out_dtype;
+  bool vec;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(THREADS, 2)
-qconv_int8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq, const float* __restrict__ scale,
-                  const float* __restrict__ bias, OutT* __restrict__ out, int H, int W, int Cp, int Co, int k,
-                  int tiles_x, int tiles_y, int tiles_n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Patch pt = patch(W, k);
-  const int PW = 1 << pt.pw_log2;
-  const int taps = k * k, pad = k >> 1;
-  const size_t sbytes = stage_bytes(pt, k);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
 
-  long long bid = blockIdx.x;
-  const int tn = int(bid % tiles_n);
-  bid /= tiles_n;
-  const int tx = int(bid % tiles_x);
-  bid /= tiles_x;
-  const int ty = int(bid % tiles_y);
-  const long long n = bid / tiles_y;
-  const int y0 = ty * pt.ph, x0 = tx * PW, co0 = tn * BN;
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  const int g = lane >> 2, t = lane & 3;
-  const int8_t* ximg = xq + n * H * W * Cp;
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 
-  auto stage = [&](int chunk, int buf) {
-    unsigned char* s = smem + buf * sbytes;
-    for (int i = tid; i < pt.halo_pos * 2; i += THREADS) {
-      const int p = i >> 1, h = i & 1;
-      const int hy = p / pt.halo_w, hx = p - hy * pt.halo_w;
-      const int yy = y0 - pad + hy, xx = x0 - pad + hx;
-      const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const int8_t* src = ok ? ximg + ((long long)yy * W + xx) * Cp + chunk * CHUNK + h * 16 : xq;
-      cp_async16(s + swz(p, h), src, ok);
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One contiguous global -> shared copy by the bulk-copy engine, counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// Generic-proxy stores to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator registers across an asynchronous wgmma.
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, no swizzle, K-major: start address, LBO
+// (between the two 16-byte k-halves of a core matrix row), SBO (between
+// groups of 8 rows), all in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((saddr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) | (uint64_t(sbo >> 4) << 32);
+}
+
+// d += a * b over k = 32: A 64 x 32 and B N x 32 s8, K-major in shared memory;
+// d is the warpgroup's m64nN s32 fragment (N/2 registers a thread).
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<8>(int* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      :
+      "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+      "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+      "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+      "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+      "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+      "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+      "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+      "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+      "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+      "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+      "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+      "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+      "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+      "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+      "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+      "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+
+// q = clamp(round_half_even(fl(v / s)), -127, 127), bit for bit, without a
+// division per value: r = v * fl(1/s) is within 2.3e-5 of fl(v / s) while
+// |v / s| < 128.5 (two roundings of 2^-24 each), so both round to the same
+// integer unless r lies within 4e-5 of a half-integer.  `quantize_fast`
+// clamps r (clamping commutes with rounding to an integer, 127 being one),
+// rounds it half to even by adding 1.5 * 2^23, whose float then holds q's
+// two's-complement byte in its low byte, and flags r near a half-integer;
+// flagged values, and all values where fl(1/s) is not a normal number
+// (`exact`), are redone by `quantize_exact` with the IEEE division, outside
+// the loop of fast ones.
+__device__ __forceinline__ unsigned quantize_fast(float v, float inv, bool& near) {
+  constexpr float ROUND = 12582912.f;  // 1.5 * 2^23
+  const float r = fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f);
+  const float t = __fadd_rn(r, ROUND);
+  near = fabsf(__fsub_rn(r, __fsub_rn(t, ROUND))) > 0.49996f;
+  return __float_as_uint(t) & 0xffu;
+}
+
+__device__ __forceinline__ unsigned quantize_exact(float v, float s) {
+  return unsigned(min(127, max(-127, __float2int_rn(__fdiv_rn(v, s))))) & 0xffu;
+}
+
+// Eight neighbouring outputs of one row: the int32 sums as they are, or
+// dequantized to float32 / bfloat16; 16-byte stores where W is a multiple of 8.
+__device__ __forceinline__ void store_row(const Params& p, const int* src, int co, long long o, int valid) {
+  const int4 lo = *reinterpret_cast<const int4*>(src), hi = *reinterpret_cast<const int4*>(src + 4);
+  const int v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const bool vec = valid == 8 && (p.W & 7) == 0;
+  if (p.out_dtype == 0) {
+    int* dst = static_cast<int*>(p.out) + o;
+    if (vec) {
+      reinterpret_cast<int4*>(dst)[0] = lo;
+      reinterpret_cast<int4*>(dst)[1] = hi;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (i < valid) dst[i] = v[i];
     }
-    unsigned char* sw = s + pt.halo_pos * 32;
-    for (int i = tid; i < taps * BN * 2; i += THREADS) {
-      const int r = i >> 1, h = i & 1;  // r = tap * BN + j
-      const int tap = r / BN, co = co0 + (r - tap * BN);
-      const bool ok = co < Co;
-      const int8_t* src = ok ? wq + ((long long)co * taps + tap) * Cp + chunk * CHUNK + h * 16 : wq;
-      cp_async16(sw + swz(r, h), src, ok);
+    return;
+  }
+  const float s = p.scale[co], b = p.bias[co];
+  float f[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = __fadd_rn(__fmul_rn(__int2float_rn(v[i]), s), b);
+  if (p.out_dtype == 1) {
+    float* dst = static_cast<float*>(p.out) + o;
+    if (vec) {
+      reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
+      reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (i < valid) dst[i] = f[i];
     }
+    return;
+  }
+  __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.out) + o;
+  if (vec) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);  // .x at the lower address
+      w[i] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < valid) dst[i] = __float2bfloat16_rn(f[i]);
+  }
+}
+
+// The m64 tiles of one work item: tile i of item `item` is m = mgroup * MTB
+// + i over (image, tile row, tile column); the first tile's coordinates,
+// the others reached by stepping, without divisions.
+struct TileWalk {
+  int n, ty, tx, m;
+  __device__ __forceinline__ void step(const Params& p) {
+    ++m;
+    if (++tx == p.tiles_x) {
+      tx = 0;
+      if (++ty == p.tiles_y) {
+        ty = 0;
+        ++n;
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ TileWalk first_tile(const Params& p, int item, int mtb) {
+  TileWalk t;
+  t.m = item / p.n_tiles * mtb;
+  t.tx = t.m % p.tiles_x;
+  t.ty = t.m / p.tiles_x % p.tiles_y;
+  t.n = t.m / (p.tiles_x * p.tiles_y);
+  return t;
+}
+
+__device__ __forceinline__ unsigned word_of(const uint4& q, int i) {
+  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+
+// The vector path's units wtid, wtid + 128, ..., G at a time: the loads of
+// G units in flight together, then their bytes.
+template <int K, int MT, int G, bool BF16>
+__device__ __forceinline__ void stage_rows(const Params& p, TileWalk t0, TileWalk t1, unsigned char* a, int chunk,
+                                           int wtid, float s, float inv, bool exact) {
+  constexpr int PAD = K / 2, HW = TILE + K - 1, HALO = HW * HW, LOADS = BF16 ? 3 : 6, UNITS = MT * HW * CHUNK;
+  for (int ub = wtid; ub < UNITS; ub += G * 128) {
+    uint4 w[G][LOADS];  // [x0-8, x0+16) of each unit: 3 loads of 8 bfloat16 or 6 of 4 float32
+    int8_t* dst[G];
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const int u = ub + gi * 128;
+      const int cl = u & (CHUNK - 1), r = u / CHUNK, hy = r % HW, mt = r / HW;
+      const bool m1 = MT > 1 && mt;
+      const int c = chunk * CHUNK + cl, y = (m1 ? t1.ty : t0.ty) * TILE - PAD + hy, x0 = (m1 ? t1.tx : t0.tx) * TILE;
+      const bool ok = u < UNITS && (m1 ? t1.m : t0.m) < p.m_total && c < p.C && y >= 0 && y < p.H;
+      const long long row =
+          (long long)(m1 ? t1.n : t0.n) * p.sn + (long long)c * p.sc + (long long)y * p.sy + x0 - 8;
+      const uint4* src = reinterpret_cast<const uint4*>(static_cast<const char*>(p.x) + row * (BF16 ? 2 : 4));
+#pragma unroll
+      for (int q = 0; q < LOADS; ++q) {
+        const int xq = x0 - 8 + (BF16 ? 8 : 4) * q;
+        w[gi][q] = ok && xq >= 0 && xq < p.W ? __ldg(src + q) : make_uint4(0, 0, 0, 0);
+      }
+      dst[gi] = u < UNITS ? reinterpret_cast<int8_t*>(a) + (mt * 2 + (cl >> 4)) * HALO * 16 + hy * HW * 16 + (cl & 15)
+                          : nullptr;
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (dst[gi] == nullptr) continue;
+      auto value = [&](int hx) {  // halo column hx's value: its place in [x0-8, x0+16) is 8 - PAD + hx
+        const int e = 8 - PAD + hx;
+        if (BF16) {
+          const unsigned word = word_of(w[gi][e / 8], (e / 2) % 4);
+          return __uint_as_float(e % 2 ? word & 0xffff0000u : word << 16);
+        }
+        return __uint_as_float(word_of(w[gi][e / 4], e % 4));
+      };
+      unsigned redo = exact ? (1u << HW) - 1 : 0u;
+#pragma unroll
+      for (int hx = 0; hx < HW; ++hx) {
+        bool near;
+        dst[gi][hx * 16] = int8_t(quantize_fast(value(hx), inv, near));
+        redo |= unsigned(near) << hx;
+      }
+      if (redo) {
+#pragma unroll
+        for (int hx = 0; hx < HW; ++hx)
+          if (redo >> hx & 1) dst[gi][hx * 16] = int8_t(quantize_exact(value(hx), s));
+      }
+    }
+  }
+}
+
+template <int K, int MT>
+__device__ __forceinline__ void stage_chunk(const Params& p, TileWalk t0, TileWalk t1, unsigned char* a, int chunk,
+                                            int wtid, float s, float inv, bool exact) {
+  constexpr int PAD = K / 2, HW = TILE + K - 1, HALO = HW * HW;
+  if (p.vec) {
+    if (p.in_bf16)
+      stage_rows<K, MT, 4, true>(p, t0, t1, a, chunk, wtid, s, inv, exact);
+    else
+      stage_rows<K, MT, 2, false>(p, t0, t1, a, chunk, wtid, s, inv, exact);
+    return;
+  }
+  for (int u = wtid; u < MT * 2 * HALO; u += 128) {
+    const int mt = u / (2 * HALO), r = u - mt * 2 * HALO, h = r / HALO, pos = r - h * HALO;
+    const int hy = pos / HW, hx = pos - hy * HW;
+    const bool m1 = MT > 1 && mt;
+    const int y = (m1 ? t1.ty : t0.ty) * TILE - PAD + hy, xx = (m1 ? t1.tx : t0.tx) * TILE - PAD + hx;
+    const bool ok = (m1 ? t1.m : t0.m) < p.m_total && y >= 0 && y < p.H && xx >= 0 && xx < p.W;
+    const long long base = (long long)(m1 ? t1.n : t0.n) * p.sn + (long long)y * p.sy + (long long)xx * p.sx;
+    const int c0 = chunk * CHUNK + h * 16;
+    float v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = 0.f;
+    if (ok) {
+      if (p.in_bf16) {
+        const unsigned short* src = static_cast<const unsigned short*>(p.x) + base;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (c0 + j < p.C) v[j] = __uint_as_float(unsigned(__ldg(src + (long long)(c0 + j) * p.sc)) << 16);
+      } else {
+        const float* src = static_cast<const float*>(p.x) + base;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (c0 + j < p.C) v[j] = __ldg(src + (long long)(c0 + j) * p.sc);
+      }
+    }
+    unsigned w[4] = {0, 0, 0, 0}, redo = exact ? 0xffffu : 0u;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      bool near;
+      w[j >> 2] |= quantize_fast(v[j], inv, near) << (8 * (j & 3));
+      redo |= unsigned(near) << j;
+    }
+    if (redo) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        if (redo >> j & 1)
+          w[j >> 2] = (w[j >> 2] & ~(0xffu << (8 * (j & 3)))) | quantize_exact(v[j], s) << (8 * (j & 3));
+    }
+    *reinterpret_cast<uint4*>(a + size_t(mt * 2 + h) * HALO * 16 + pos * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// A warpgroup's first tile in item `item` (its second is the next one).
+template <int MT>
+__device__ __forceinline__ TileWalk tile_of(const Params& p, int item, int wg) {
+  TileWalk t = first_tile(p, item, CONSUMERS * MT);
+  for (int j = 0; j < wg * MT; ++j) t.step(p);
+  return t;
+}
+
+// Work items are (m-group, N tile) pairs, N tile fastest; a persistent block
+// takes items blockIdx.x, blockIdx.x + gridDim.x, ...; its chunks, item
+// after item, are numbered g = 0, 1, ...  Warps 0-7: the two consumer
+// warpgroups; warps 8-11: the producer warpgroup, whose one thread fills the
+// weight ring.
+template <int BN, int K>
+__global__ void __launch_bounds__(THREADS, 1) qconv_int8_kernel(const Params p) {
+  using TL = Tiles<BN>;
+  constexpr int MT = TL::MT, HW = TILE + K - 1, HALO = HW * HW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = layout(BN, MT, TL::CG, K, p.depth);
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* w_empty = w_full + MAX_DEPTH;
+  unsigned char* ring = smem + BAR_BYTES;
+  unsigned char* abase = ring + L.ring;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int items = p.items;
+  const int my_chunks = (items - int(blockIdx.x) + int(gridDim.x) - 1) / int(gridDim.x) * p.chunks;
+
+  if (tid == 0) {
+    for (int i = 0; i < p.depth; ++i) {
+      mbar_init(&w_full[i], 1);
+      mbar_init(&w_empty[i], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {  // the producer warpgroup: one thread keeps the weight ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      constexpr uint32_t row_bytes = uint32_t(BN) * CHUNK;
+      int T = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int co0 = item % p.n_tiles * BN;
+        for (int t = 0; t < p.chunks * K; ++t, ++T) {
+          const int slot = T % p.depth;
+          if (T >= p.depth) mbar_wait(&w_empty[slot], (T / p.depth - 1) & 1);
+          const int c = t / K, ky = t - c * K;
+          mbar_expect_tx(&w_full[slot], row_bytes * K);
+          const int8_t* src = p.w + ((long long)(c * K + ky) * K * p.co_pad + co0) * CHUNK;
+#pragma unroll
+          for (int kx = 0; kx < K; ++kx)
+            bulk_copy(ring + slot * L.stage + kx * row_bytes, src + (long long)kx * p.co_pad * CHUNK, row_bytes,
+                      &w_full[slot]);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  const int wg = warp >> 2, wtid = tid & 127, wi = warp & 3, g = lane >> 2, tq = lane & 3;
+  const float s = *p.x_scale, inv = __frcp_rn(s);
+  const bool exact = !(inv >= 1.17549435e-38f && inv <= 3.40282347e38f);
+  unsigned char* ahalo = abase + size_t(wg) * MT * L.tile;  // + buffer * CONSUMERS * MT * L.tile
+  const size_t buf_bytes = size_t(CONSUMERS) * MT * L.tile;
+  const uint32_t a_addr = smem_u32(ahalo), ring_addr = smem_u32(ring);
+  int* epi = reinterpret_cast<int*>(abase + L.a) + wg * TL::CG * TL::RS;
+
+  // Stage chunk gn's halo (of the tiles s0, s1) into buffer gn & 1.
+  TileWalk s0 = tile_of<MT>(p, blockIdx.x, wg), s1 = s0;
+  s1.step(p);
+  auto stage = [&](int gn) {
+    stage_chunk<K, MT>(p, s0, s1, ahalo + (gn & 1) * buf_bytes, gn % p.chunks, wtid, s, inv, exact);
   };
 
-  // Halo positions of this thread's fragment rows g and g+8 in its two m-tiles.
-  int pbase[2][2];
+  stage(0);
+  fence_proxy_async();
+  warpgroup_sync(wg);
+  int T = 0, gc = 0;
+  int acc[MT][BN / 2];
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int co0 = item % p.n_tiles * BN;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int m = (wm * 2 + mi) * 16 + g + hr * 8;
-      pbase[mi][hr] = (m >> pt.pw_log2) * pt.halo_w + (m & (PW - 1));
-    }
-  }
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  const int nchunks = Cp / CHUNK;
-  stage(0, 0);
-  cp_async_commit();
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      stage(c + 1, (c + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* s = smem + (c & 1) * sbytes;
-    const unsigned char* sw = s + pt.halo_pos * 32;
-    for (int ky = 0; ky < k; ++ky) {
-      for (int kx = 0; kx < k; ++kx) {
-        const int off = ky * pt.halo_w + kx, tap = ky * k + kx;
-        unsigned a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int p0 = pbase[mi][0] + off, p1 = pbase[mi][1] + off;
-          a[mi][0] = lds32(s + swz(p0, 0) + 4 * t);  // row g,   k 4t..4t+3
-          a[mi][1] = lds32(s + swz(p1, 0) + 4 * t);  // row g+8, k 4t..4t+3
-          a[mi][2] = lds32(s + swz(p0, 1) + 4 * t);  // row g,   k 16+4t..
-          a[mi][3] = lds32(s + swz(p1, 1) + 4 * t);  // row g+8, k 16+4t..
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int r = tap * BN + wn * 32 + ni * 8 + g;  // column g of the n-tile
-          const unsigned b0 = lds32(sw + swz(r, 0) + 4 * t);
-          const unsigned b1 = lds32(sw + swz(r, 1) + 4 * t);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_s8(acc[mi][ni], a[mi], b0, b1);
-        }
+      for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0;
+    for (int c = 0; c < p.chunks; ++c, ++gc) {
+      const uint32_t a0 = a_addr + uint32_t((gc & 1) * buf_bytes);
+      const bool next = gc + 1 < my_chunks;
+      if (next && c + 1 == p.chunks) {  // the next chunk is the next item's first
+        s0 = tile_of<MT>(p, item + gridDim.x, wg);
+        s1 = s0;
+        s1.step(p);
       }
-    }
-    __syncthreads();  // the next iteration's copies overwrite this buffer
-  }
-
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+      for (int ky = 0; ky < K; ++ky, ++T) {
+        const int slot = T % p.depth;
+        mbar_wait(&w_full[slot], (T / p.depth) & 1);
+        __syncwarp();
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
+        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = (wm * 2 + mi) * 16 + g + (e >> 1) * 8;
-        const int y = y0 + (m >> pt.pw_log2), xx = x0 + (m & (PW - 1));
-        const int co = co0 + wn * 32 + ni * 8 + 2 * t + (e & 1);
-        if (y < H && xx < W && co < Co) {
-          const float sc = scale ? scale[co] : 0.f, b = bias ? bias[co] : 0.f;
-          store(out + ((n * Co + co) * H + y) * (long long)W + xx, acc[mi][ni][e], sc, b);
+        for (int kx = 0; kx < K; ++kx) {
+          const uint64_t db = make_desc(ring_addr + uint32_t(slot * L.stage + kx * BN * CHUNK), 128, 256);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const uint32_t at = a0 + uint32_t(mt * L.tile + (ky * HW + kx) * 16);
+            wgmma_s8<BN>(acc[mt], make_desc(at, uint32_t(HALO * 16), uint32_t(HW * 16)), db);
+          }
         }
+        wgmma_commit();
+        // The next chunk is quantized into the other halo buffer at step 1,
+        // while this step's and the previous step's groups run (they read
+        // this chunk's buffer); with K = 1 at step 0 after the wait, which
+        // completes the last group that read the other one.
+        const bool stage_now = next && ky == (K > 1 ? 1 : 0);
+        if (ky > 0 && stage_now) stage(gc + 1);
+        __syncwarp();     // wgmma.wait_group is .aligned: the warp converged
+        wgmma_wait<1>();  // every group but this step's has completed
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+        if (c > 0 || ky > 0) {  // an item's first step follows a step given back at the item's end
+          if (lane == 0) mbar_arrive(&w_empty[(T - 1) % p.depth]);
+        }
+        if (ky == 0 && stage_now) stage(gc + 1);
       }
+      fence_proxy_async();
+      warpgroup_sync(wg);
+    }
+    __syncwarp();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+    if (lane == 0) mbar_arrive(&w_empty[(T - 1) % p.depth]);
+
+    // Epilogue, EPI_CH output channels a pass: fragments -> [channel][pixel]
+    // in shared memory, then 8 pixels of one row a thread.
+    const TileWalk t0 = tile_of<MT>(p, item, wg);
+    TileWalk t1 = t0;
+    t1.step(p);
+#pragma unroll
+    for (int pass = 0; pass < BN / TL::CG; ++pass) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int jj = 0; jj < TL::CG / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = 16 * wi + g + 8 * (e >> 1), ch = jj * 8 + 2 * tq + (e & 1);
+            epi[ch * TL::RS + mt * 64 + row] = acc[mt][(pass * (TL::CG / 8) + jj) * 4 + e];
+          }
+      warpgroup_sync(wg);
+      for (int u = wtid; u < TL::CG * MT * TILE; u += 128) {
+        const int ch = u / (MT * TILE), r = u - ch * MT * TILE, mt = r / TILE, row = r - mt * TILE;
+        const int co = co0 + pass * TL::CG + ch;
+        const bool m1 = MT > 1 && mt;
+        const int y = (m1 ? t1.ty : t0.ty) * TILE + row, x0 = (m1 ? t1.tx : t0.tx) * TILE;
+        if ((m1 ? t1.m : t0.m) >= p.m_total || co >= p.Co || y >= p.H) continue;
+        const long long o = (((long long)(m1 ? t1.n : t0.n) * p.Co + co) * p.H + y) * (long long)p.W + x0;
+        store_row(p, epi + ch * TL::RS + mt * 64 + row * TILE, co, o, min(TILE, p.W - x0));
+      }
+      warpgroup_sync(wg);
     }
   }
 }
 
-template <typename OutT>
-cudaError_t launch_qconv(const int8_t* xq, const int8_t* wq, const float* scale, const float* bias, void* out, int N,
-                         int H, int W, int Cp, int Co, int k, cudaStream_t stream) {
+// The weight ring takes as many stages of one kernel row as fit beside the
+// halo and epilogue buffers, at most MAX_DEPTH; fewer than two are refused.
+template <int BN, int K>
+cudaError_t launch_qconv(Params p, cudaStream_t stream) {
+  using TL = Tiles<BN>;
   static size_t opted = 0;  // dynamic shared memory this instantiation is opted into
-  const Patch pt = patch(W, k);
-  const size_t smem = 2 * stage_bytes(pt, k);
-  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  if (smem > opted) {
+  p.depth = MAX_DEPTH;
+  while (p.depth > 2 && layout(BN, TL::MT, TL::CG, K, p.depth).total > SMEM_MAX) --p.depth;
+  const Layout L = layout(BN, TL::MT, TL::CG, K, p.depth);
+  if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
+  if (L.total > opted) {
     const cudaError_t err =
-        cudaFuncSetAttribute(qconv_int8_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        cudaFuncSetAttribute(qconv_int8_kernel<BN, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.total));
     if (err != cudaSuccess) return err;
-    opted = smem;
+    opted = L.total;
   }
-  const int tiles_x = (W + (1 << pt.pw_log2) - 1) >> pt.pw_log2;
-  const int tiles_y = (H + pt.ph - 1) / pt.ph;
-  const int tiles_n = (Co + BN - 1) / BN;
-  const long long blocks = (long long)N * tiles_y * tiles_x * tiles_n;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  qconv_int8_kernel<OutT><<<unsigned(blocks), THREADS, smem, stream>>>(
-      xq, wq, scale, bias, static_cast<OutT*>(out), H, W, Cp, Co, k, tiles_x, tiles_y, tiles_n);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int blocks = p.items < sms ? p.items : sms;
+  qconv_int8_kernel<BN, K><<<blocks, THREADS, L.total, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_k(const Params& p, cudaStream_t stream) {
+  switch (p.k) {
+    case 1: return launch_qconv<BN, 1>(p, stream);
+    case 3: return launch_qconv<BN, 3>(p, stream);
+    case 5: return launch_qconv<BN, 5>(p, stream);
+    case 7: return launch_qconv<BN, 7>(p, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Element strides of x (N, C, H, W).
-// Returns cudaGetLastError() after the launch.
-extern "C" int quantize_int8(const void* x, const void* scale, void* out, long long sn, long long sc, long long sy,
-                             long long sx, int N, int C, int H, int W, int Cp, int dtype, void* stream) {
-  if (Cp % 32 != 0 || C > Cp || H > 65535) return int(cudaErrorInvalidValue);
-  const int tiles_x = (W + 31) / 32;
-  const long long blocks = (long long)N * (Cp / 32) * tiles_x;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
-  const dim3 grid{static_cast<unsigned>(blocks), static_cast<unsigned>(H)}, block{32, 8};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(scale);
-  int8_t* o = static_cast<int8_t*>(out);
-  if (dtype == 0) {
-    quantize_int8_kernel<float><<<grid, block, 0, st>>>(static_cast<const float*>(x), s, o, sn, sc, sy, sx, C, H,
-                                                        W, Cp, tiles_x);
-  } else if (dtype == 1) {
-    quantize_int8_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(static_cast<const __nv_bfloat16*>(x), s, o, sn,
-                                                                sc, sy, sx, C, H, W, Cp, tiles_x);
-  } else {
+// x [N, C, H, W] float32 (in_dtype 0) or bfloat16 (1), element strides sn,
+// sc, sy, sx; x_scale a device float32 scalar; w the weights repacked as
+// [ceil(C/32)][k*k][Co_pad/8][2][8][16] int8 (Co_pad = Co rounded up to bn);
+// scale and bias [Co] float32 (unused for int32 output); out [N, Co, H, W]
+// contiguous.  bn, the N tile the weights were repacked for, in {8, 32, 64,
+// 128, 256}.  out_dtype: 0 = int32 (the sums, no epilogue), 1 = float32,
+// 2 = bfloat16.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for what the kernel does not take.
+extern "C" int qconv_int8(const void* x, const void* x_scale, const void* w, const void* scale, const void* bias,
+                          void* out, long long sn, long long sc, long long sy, long long sx, int N, int C, int H,
+                          int W, int Co, int k, int bn, int in_dtype, int out_dtype, void* stream) {
+  if (k < 1 || k > 7 || (k & 1) == 0 || C <= 0 || Co <= 0 || N <= 0 || H <= 0 || W <= 0 ||
+      (in_dtype != 0 && in_dtype != 1) || out_dtype < 0 || out_dtype > 2 ||
+      (out_dtype != 0 && (scale == nullptr || bias == nullptr)))
     return int(cudaErrorInvalidValue);
-  }
-  return int(cudaGetLastError());
-}
-
-// xq [N, H, W, Cp] and wq [Co, k, k, Cp] int8, contiguous; scale and bias
-// [Co] float32 (unused for int32 output); out [N, Co, H, W] contiguous.
-// out_dtype: 0 = int32 (the sums, no epilogue), 1 = float32, 2 = bfloat16.
-// Returns cudaGetLastError() after the launch.
-extern "C" int qconv_int8(const void* xq, const void* wq, const void* scale, const void* bias, void* out, int N,
-                          int H, int W, int Cp, int Co, int k, int out_dtype, void* stream) {
-  if (Cp % CHUNK != 0 || Cp <= 0 || Co <= 0 || k < 1 || k > 7 || (k & 1) == 0) return int(cudaErrorInvalidValue);
-  const int8_t* x = static_cast<const int8_t*>(xq);
-  const int8_t* w = static_cast<const int8_t*>(wq);
-  const float* s = static_cast<const float*>(scale);
-  const float* b = static_cast<const float*>(bias);
+  Params p;
+  p.x = x;
+  p.x_scale = static_cast<const float*>(x_scale);
+  p.w = static_cast<const int8_t*>(w);
+  p.scale = static_cast<const float*>(scale);
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.sn = sn;
+  p.sc = sc;
+  p.sy = sy;
+  p.sx = sx;
+  p.C = C;
+  p.H = H;
+  p.W = W;
+  p.Co = Co;
+  p.co_pad = (Co + bn - 1) / bn * bn;
+  p.k = k;
+  p.chunks = (C + CHUNK - 1) / CHUNK;
+  p.tiles_x = (W + TILE - 1) / TILE;
+  p.tiles_y = (H + TILE - 1) / TILE;
+  const long long m_total = (long long)N * p.tiles_x * p.tiles_y;
+  const int mt = bn == 256 ? 1 : 2;
+  const long long items = (m_total + CONSUMERS * mt - 1) / (CONSUMERS * mt) * (p.co_pad / bn);
+  if (items > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  p.m_total = int(m_total);
+  p.n_tiles = p.co_pad / bn;
+  p.items = int(items);
+  p.in_bf16 = in_dtype;
+  p.out_dtype = out_dtype;
+  // The vector path reads rows of x with 16-byte loads: unit x stride, W a
+  // multiple of 8, and the base and every row start 16-byte aligned.
+  const long long per16 = in_dtype ? 8 : 4;  // values in 16 bytes
+  p.vec = sx == 1 && W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 && sn % per16 == 0 &&
+          sc % per16 == 0 && sy % per16 == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (out_dtype) {
-    case 0: return int(launch_qconv<int>(x, w, nullptr, nullptr, out, N, H, W, Cp, Co, k, st));
-    case 1: return int(launch_qconv<float>(x, w, s, b, out, N, H, W, Cp, Co, k, st));
-    case 2: return int(launch_qconv<__nv_bfloat16>(x, w, s, b, out, N, H, W, Cp, Co, k, st));
+  switch (bn) {
+    case 8: return int(launch_k<8>(p, st));
+    case 32: return int(launch_k<32>(p, st));
+    case 64: return int(launch_k<64>(p, st));
+    case 128: return int(launch_k<128>(p, st));
+    case 256: return int(launch_k<256>(p, st));
   }
   return int(cudaErrorInvalidValue);
 }
