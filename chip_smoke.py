@@ -85,6 +85,24 @@ Phases, one JSON line each:
                    validate_quant gate on 4) and ``--quantize int8_dynamic``
                    (16 clips, B=16): the calibration and gate lines, every PNG,
                    and the launches of calibration, gate and loop.
+  7b. reference_import — the reproduction path: a seeded
+                   ``tests/torch_mirror.py`` TAI_gray at full width (the
+                   reference's state_dict layout) saved as a reference
+                   snapshot, through ``cli.import_torch_checkpoint``: every
+                   tensor converted, ``merge_residual1``'s four skipped; its f32
+                   forward by ``VideoInpainter.from_checkpoint`` against the
+                   mirror's own forward on the card (B=2, K=T=F=5, TF32 off):
+                   max-abs <= 5e-3 and uint8 PSNR >= 45 dB on every output, 2
+                   banded launches and no call of a plain sepconv; then
+                   ``cli.predict`` from the imported snapshot in bf16 on 16
+                   of ``predict``'s clips (B=8, 4 banded launches),
+                   ``cli.compute_quant_results`` on the card, and
+                   ``cli.summarize_quant_results``' two text tables equal to
+                   numpy's means, standard errors and per-video means of the
+                   same results.npz; then ``OFFillInModel``: the ImportError
+                   naming OpenCV or scipy where either is missing, else two
+                   clips served by the predict CLI; the outcome and the
+                   seconds of each step printed.
   8. train_golden — two f32 training steps of TAI_gray at B=2 against the JAX
                    training golden (``tests/torch_golden_train_tai_gray.npz``):
                    loss terms within rel 1e-3, step-1 gradient projections
@@ -201,6 +219,7 @@ import concurrent.futures
 import contextlib
 import copy
 import hashlib
+import importlib.util
 import io
 import json
 import math
@@ -215,8 +234,11 @@ import numpy as np
 import torch
 
 from vfi_tpu_torch.api import VideoInpainter
+from tests import torch_mirror
 from vfi_tpu_torch.cli import compute_quant_results as quant_cli
+from vfi_tpu_torch.cli import import_torch_checkpoint as import_cli
 from vfi_tpu_torch.cli import predict as predict_cli
+from vfi_tpu_torch.cli import summarize_quant_results as summarize_cli
 from vfi_tpu_torch.cli import train as train_cli
 from vfi_tpu_torch.data import native_loader
 from vfi_tpu_torch.data.datasets import ContiguousVideoClipDataset, batch_iterator
@@ -1554,6 +1576,211 @@ def phase_predict_int8(root: str, videolist: str, per_forward: int) -> dict:
                 gate(got.get(k, 0) == w.get(k, 0), f"{path} {stage}: {k} launched {got.get(k, 0)}, want {w.get(k, 0)}")
         _gate_launches(path, launches, total)
     emit("predict_int8", wall_s=time.perf_counter() - t0)
+    return paths
+
+
+# The reproduction path: a reference-format snapshot of the reference's
+# TAI_gray at full width (tests/torch_mirror.py, seeded: the state_dict
+# layout of a published model_best.ckpt) imported, served and scored.
+REFERENCE = dict(model_key="TAI_gray", mirror_seed=0, input_seed=8, updates=150000, B=2, K=5, T=5, F=5, H=128,
+                 W=128, clips=16, batch=8, of_clips=2)
+REFERENCE_NAME = "imported_tai_gray"
+DEAD_WEIGHTS = ["merge_residual1.res.0.bias", "merge_residual1.res.0.weight", "merge_residual1.res.2.bias",
+                "merge_residual1.res.2.weight"]
+
+
+def reference_weights_(mirror: torch.nn.Module, seed: int) -> None:
+    """Redraw a mirror's weights in place, in state_dict order from one
+    ``np.random.RandomState(seed)``, as ``random_jax_params`` draws the
+    port's: conv and transposed-conv kernels He-normal, biases small normals,
+    the kernel heads' last convs with small kernels and biases centred on
+    1/ks (each per-pixel kernel sums to about 1).  torch's default init
+    leaves TAI's outputs nearly constant, which would hide a wrong mapping."""
+    rng = np.random.RandomState(seed)
+    heads = {f"kernelnet.module{h}.7" for h in ("Vertical1", "Vertical2", "Horizontal1", "Horizontal2")}
+    modules = dict(mirror.named_modules())
+    with torch.no_grad():
+        for name, t in mirror.state_dict().items():
+            owner, leaf = name.rsplit(".", 1)
+            m = modules[owner]
+            fan_in = (m.in_channels * m.kernel_size[0] * m.kernel_size[1]) if hasattr(m, "in_channels") else t.shape[-1]
+            if leaf == "weight":
+                std = 0.5 / t.shape[0] / np.sqrt(fan_in) if owner in heads else np.sqrt(2.0 / fan_in)
+                a = rng.standard_normal(tuple(t.shape)) * std
+            else:
+                a = rng.standard_normal(tuple(t.shape)) * 0.01 + (1.0 / t.shape[0] if owner in heads else 0.0)
+            t.copy_(torch.from_numpy(a.astype(np.float32)))
+
+
+@contextlib.contextmanager
+def plain_sepconv_calls():
+    """Counts the calls of the plain sepconv forwards (``sepconv_banded``,
+    ``sepconv_direct``) made inside, by the dispatcher or ``SepConv``."""
+    calls = {"sepconv_banded": 0, "sepconv_direct": 0}
+    saved = {n: getattr(sepconv_ops, n) for n in calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in calls:
+        setattr(sepconv_ops, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(sepconv_ops, name, fn)
+
+
+def phase_reference_import(root: str, videolist: str, card: str) -> dict:
+    """The paper's reproduction path on the card: a
+    ``tests/torch_mirror.py`` TAI_gray (gf 64, ks 51, num_block 5, kf 32)
+    with seeded weights (:func:`reference_weights_`) saved as a reference
+    snapshot (``updates``, the two error sums,
+    ``generator``, ``optimizer_G``) goes through
+    ``cli.import_torch_checkpoint``; its f32 forward through
+    ``VideoInpainter.from_checkpoint`` against the mirror's own forward on the
+    card (unfold sepconv) at B=2, K=T=F=5, 128x128, TF32 off: the forward
+    gates, 2 banded launches and no plain sepconv; then ``cli.predict`` from
+    the snapshot in bf16 on 16 of ``phase_predict``'s clips,
+    ``cli.compute_quant_results`` on the card and ``cli.summarize_quant_results``'
+    two text tables against numpy's means and standard errors of the same
+    results.npz; and ``OFFillInModel``: the ImportError naming OpenCV or
+    scipy where they are missing, else two clips served.  Returns the
+    launches of the forward and of the predict run."""
+    cfg = REFERENCE
+    K, T, F, B, H, W = cfg["K"], cfg["T"], cfg["F"], cfg["B"], cfg["H"], cfg["W"]
+    seconds, paths = {}, {}
+    t_phase = time.perf_counter()
+    mirror = torch_mirror.TAIFillInModel(64, 1, 3, 51, num_block=5, kf_dim=32).eval()
+    reference_weights_(mirror, cfg["mirror_seed"])
+    src = os.path.join(root, "reference", "model_best.ckpt")
+    os.makedirs(os.path.dirname(src), exist_ok=True)
+    torch.save({"updates": cfg["updates"], "sum_avg_psnr_err": 0.0, "sum_avg_ssim_err": 0.0,
+                "generator": mirror.state_dict(),
+                "optimizer_G": torch.optim.Adam(mirror.parameters()).state_dict()}, src)
+
+    dest = os.path.join(root, "ckpt", REFERENCE_NAME)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        imported = import_cli.main([src, "--model_key", cfg["model_key"], "--dest_dir", dest])
+    seconds["import_s"] = time.perf_counter() - t0
+    with torch.device("meta"):
+        n_tensors = len(create_model(cfg["model_key"]).state_dict())
+    report = imported["report"]
+    emit("reference_import_cli", converted=report.converted, skipped=sorted(report.skipped),
+         params=imported["params"], snapshot_bytes=os.path.getsize(os.path.join(dest, "model_best.ckpt",
+                                                                                ckpt.PAYLOAD)))
+    gate(report.converted == n_tensors, f"the import converted {report.converted} tensors, the model has {n_tensors}")
+    gate(sorted(report.skipped) == DEAD_WEIGHTS, f"the import skipped {sorted(report.skipped)}")
+
+    # The imported f32 forward against the mirror's, both on the card, TF32 off.
+    rng = np.random.RandomState(cfg["input_seed"])
+    p = rng.uniform(-1, 1, (B, K, H, W, 1)).astype(np.float32)
+    f = rng.uniform(-1, 1, (B, F, H, W, 1)).astype(np.float32)
+    ip = VideoInpainter.from_checkpoint(cfg["model_key"], dest, dtype=torch.float32, device="cuda")
+    pc, fc = torch.from_numpy(p).cuda(), torch.from_numpy(f).cuda()
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    with plain_sepconv_calls() as plain, torch.inference_mode():
+        t0 = time.perf_counter()
+        out = ip.model(T, pc, fc)
+        torch.cuda.synchronize()
+        seconds["forward_s"] = time.perf_counter() - t0
+    paths["reference_import"] = _launch_counts()
+    out = {k: v.float().cpu().numpy() for k, v in out.items()}
+    del ip, pc, fc
+    mirror.cuda()
+    with torch.device("cuda"), torch.no_grad():  # the mirror makes its LSTM state with torch.zeros
+        t0 = time.perf_counter()
+        ref = mirror(T, torch.from_numpy(p.transpose(0, 1, 4, 2, 3)).cuda(),
+                     torch.from_numpy(f.transpose(0, 1, 4, 2, 3)).cuda())
+        torch.cuda.synchronize()
+        seconds["mirror_forward_s"] = time.perf_counter() - t0
+    ref = {k: v.permute(0, 1, 3, 4, 2).float().cpu().numpy() for k, v in ref.items()}
+    del mirror
+    torch.cuda.empty_cache()
+    res = {k: (float(np.abs(out[k] - ref[k]).max()), u8_psnr(u8(out[k]), u8(ref[k]))) for k in ref}
+    emit("reference_import_forward", dtype="float32", tf32=False, batch=B, shape=[H, W, 1], plain_calls=plain,
+         **{f"{k}_std": float(ref[k].std()) for k in ref}, **{f"{k}_max_abs": v[0] for k, v in res.items()}, **{f"{k}_u8_psnr_db": v[1] for k, v in res.items()},
+         **paths["reference_import"])
+    gate(sorted(res) == sorted(out), f"the port's outputs {sorted(out)}, the mirror's {sorted(res)}")
+    for key, (err, psnr) in res.items():
+        gate(err <= 5e-3, f"reference_import: {key} max_abs {err} > 5e-3 against the mirror")
+        gate(psnr >= 45.0, f"reference_import: {key} uint8 PSNR {psnr} dB < 45 against the mirror")
+    gate(not any(plain.values()), f"reference_import: the plain sepconv ran: {plain}")
+    _gate_launches("reference_import", paths["reference_import"], {"sepconv_fwd_mxu": 2})
+
+    # Serve, score, summarize.
+    lst = _head(videolist, cfg["clips"], os.path.join(root, "list_reference.txt"))
+    qual, quant_root, tables = (os.path.join(root, d) for d in ("qual_reference", "quant_reference", "tables"))
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    stats, _ = run_predict(_predict_args(PREDICT, root, lst, qual, "bfloat16", cfg["batch"],
+                                         ["--device_normalize", "--name", REFERENCE_NAME]))
+    seconds["predict_s"] = time.perf_counter() - t0
+    seconds["predict_loop_s"] = stats["loop_s"]
+    paths["reference_predict"] = _launch_counts()
+    pngs = _pngs(qual)
+    gate(len(pngs) == cfg["clips"] and all(len(v) == K + 2 * T + F for v in pngs.values()),
+         f"reference predict wrote {len(pngs)} folders of {sorted({len(v) for v in pngs.values()})} PNGs")
+    _gate_launches("reference_predict", paths["reference_predict"],
+                   {"sepconv_fwd_mxu": 2 * (cfg["clips"] // cfg["batch"])})
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        quant_cli.main([qual, quant_root, str(K), str(T)])
+    seconds["quant_s"] = time.perf_counter() - t0
+    label = "imported_TAI_gray"
+    t0 = time.perf_counter()
+    for metric in ("psnr", "ssim"):
+        for cmd in ("metric_summary_text_file", "video_metric_text_file"):
+            summarize_cli.main([cmd, "--quant_results_roots", quant_root, "--labels", label, "--dest_path", tables,
+                                "--metric", metric])
+    seconds["summarize_s"] = time.perf_counter() - t0
+    z = np.load(os.path.join(quant_root, "results.npz"))
+    table_rows = {}
+    for metric in ("psnr", "ssim"):
+        per_video = np.minimum(z[metric], 100.0).mean(axis=1) if metric == "psnr" else z[metric].mean(axis=1)
+        want = ["%.2f" % per_video.mean(), "%.3f" % (per_video.std() / np.sqrt(per_video.size))]
+        with open(os.path.join(tables, f"{metric}_perf_summary.txt")) as fh:
+            rows = [[c.strip() for c in ln.strip("|").split("|")] for ln in fh.read().splitlines() if ln.startswith("|")]
+        table_rows[metric] = rows
+        gate(rows == [["Model", "Mean", "StdErr"], [label, *want]], f"{metric} table {rows}, numpy {want}")
+        with open(os.path.join(tables, f"sorted_{metric}_scores.txt")) as fh:
+            lines = fh.read().splitlines()
+        scores = [float(ln.rsplit(", ", 1)[1]) for ln in lines[1:] if ln]
+        gate(lines[0] == f"{label}:" and np.allclose(scores, np.sort(per_video), rtol=1e-12, atol=0),
+             f"sorted_{metric}_scores.txt is not numpy's per-video means")
+    emit("reference_predict", dtype="bfloat16", batch=cfg["batch"], clips=stats["clips"],
+         psnr_mean_db=float(z["psnr"].mean()), ssim_mean=float(z["ssim"].mean()), tables=table_rows,
+         **paths["reference_predict"])
+
+    # The optical-flow baseline: host code that needs OpenCV and scipy.
+    try:
+        create_model("OFFillInModel")
+        import cv2
+        import scipy
+    except ImportError as e:
+        outcome = f"not built: ImportError({e})"
+        gate(e.name in ("cv2", "scipy.spatial") and ("OpenCV" in str(e) or "scipy" in str(e)),
+             f"OFFillInModel's ImportError names no package: {e!r}")
+    else:
+        lst2 = _head(videolist, cfg["of_clips"], os.path.join(root, "list_of.txt"))
+        qual_of = os.path.join(root, "qual_of")
+        _reset_launch_counts()
+        run_predict(_predict_args(PREDICT, root, lst2, qual_of, "float32", cfg["of_clips"],
+                                  ["--model_key", "OFFillInModel"]))
+        of_pngs = _pngs(qual_of)
+        gate(len(of_pngs) == cfg["of_clips"] and all(len(v) == K + 2 * T + F for v in of_pngs.values()),
+             f"OFFillInModel wrote {len(of_pngs)} folders")
+        _gate_launches("reference_of", _launch_counts(), {})
+        outcome = f"served {len(of_pngs)} clips (OpenCV {cv2.__version__}, scipy {scipy.__version__})"
+    print(f"OFFillInModel: {outcome}", flush=True)
+    emit("reference_import", nvidia_smi=card, offillinmodel=outcome, wall_s=time.perf_counter() - t_phase,
+         host_packages={m: importlib.util.find_spec(m) is not None for m in ("cv2", "scipy", "matplotlib", "PIL")},
+         **seconds)
     return paths
 
 
@@ -3084,6 +3311,7 @@ def main(argv) -> int:
         paths.update(predict_paths)
         phase_timing_predict(predict_root, videolist, warm)
         paths.update(phase_predict_int8(predict_root, videolist, len(schedule)))
+        paths.update(phase_reference_import(predict_root, videolist, smi[0] if smi else ""))
         torch.cuda.empty_cache()
         env, tstate, targets = phase_train_golden()
         phase_train_kernel_vs_plain(env, tstate, targets)

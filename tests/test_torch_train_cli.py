@@ -11,31 +11,33 @@ every 2 iterations and a validation sweep of three sets every 2
 --sample_KTF (vfi_tpu's padded dynamic step; the port's static step at each
 sampled (K, T, F)); both resume from the port's iteration-2 snapshot (see
 the fixture).  One vfi_tpu invocation costs about 18 s of its init on this
-CPU, so the sampled run is the resumed one.  vfi_tpu runs in one subprocess
-(JAX on the CPU) that calls its main twice; there tensorboardX is made
-unimportable, so vfi_tpu writes no TensorBoard events and runs no
-visualisation forwards (they change no logged number and would only add
-compiles).  The port runs in-process with --device cpu.
+CPU, so the sampled run is the resumed one.  The port runs in-process with
+--device cpu.  vfi_tpu's side, its two invocations of cli/train.py with
+tensorboardX unimportable (so it writes no TensorBoard events and runs no
+visualisation forwards, which change no logged number), is read from
+tests/torch_golden_train_cli.npz: its log and its iteration-4 snapshot, and
+the port's iteration-2 snapshot it resumed from, written by
+``JAX_PLATFORMS=cpu python tests/make_torch_train_cli_golden.py`` on this
+module's inputs.
 
 Gates: every logged loss term within rel 1e-3; validation PSNR within 1e-3
 dB and SSIM within 1e-4 on each of the three sets; model_best.ckpt at the
-same iterations; and the iteration-4 snapshot, converted back by to_jax,
-held to vfi_tpu's under tests/test_torch_checkpoint.py's resume gates
-(weights, the update since the resume, both Adam moments within
-global-L2-relative 1e-4; the step counts equal)."""
+same iterations; the iteration-4 snapshot, converted back by to_jax, held to
+vfi_tpu's under tests/test_torch_checkpoint.py's resume gates (weights, the
+update since the resume, both Adam moments within global-L2-relative 1e-4;
+the step counts equal); and the port's iteration-2 snapshot equal to the
+one the golden's vfi_tpu run resumed from (weights and Adam moments within
+global-L2-relative 1e-6), so that a golden made from another state fails."""
 
 import glob
 import json
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 
-from scripts.convert_checkpoint_torch import read_jax_snapshot, to_jax_state, to_torch_payload
-from vfi_tpu.utils import checkpoint as jckpt
+from scripts.convert_checkpoint_torch import to_jax_state, to_torch_payload
 from vfi_tpu_torch.cli import train as train_cli
 from vfi_tpu_torch.data.synthetic import make_videolist
 from vfi_tpu_torch.utils import checkpoint as tckpt
@@ -51,20 +53,10 @@ LENS = dict(K=3, T=3, F=3, alt_K=4, alt_T=4, alt_F=4)  # validation sets of 9, 1
 TERMS = ("G_Lp", "G_gdl", "G_GAN", "G_Lp_forward", "G_Lp_backward", "G_gdl_forward", "G_gdl_backward", "G_loss",
          "D_fake", "D_real")
 
-# vfi_tpu's cli/train.py, its main called once per argument list; before the
-# second, the snapshot directory argv[3] replaces argv[4] (see the fixture).
-JAX_RUNNER = """
-import importlib.util, json, shutil, sys
-sys.modules["tensorboardX"] = None  # vfi_tpu's make_writer then returns None
-spec = importlib.util.spec_from_file_location("vfi_tpu_train_cli", sys.argv[1])
-cli = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(cli)
-first, second = json.loads(sys.argv[2])
-cli.main(first)
-shutil.rmtree(sys.argv[4])
-shutil.copytree(sys.argv[3], sys.argv[4])
-cli.main(second)
-"""
+GOLDEN_PATH = os.path.join(REPO, "tests", "torch_golden_train_cli.npz")
+# What the golden was made on: this module's constants and seeds.
+GOLDEN_META = dict(spec=SPEC, lens=LENS, hw=HW, batch=B, clip_seeds=[1, 2, 3, 4], start_seed=11, seed=5,
+                   max_iters=[2, 5], flags=["--save_latest_freq", "2", "--validate_freq", "2", "--device_normalize"])
 
 
 def _args(root, side, name, lens, lists, max_iter, extra=()):
@@ -102,33 +94,70 @@ def _start_snapshot(root, name):
                         to_torch_payload(raw["state"], raw["counters"], json.dumps(SPEC)))
 
 
+def plan(lists):
+    """The two invocations: iterations 1-2 at fixed (K, T, F), then the resume to 5 under --sample_KTF."""
+    flags = GOLDEN_META["flags"]
+    return [("run", LENS, lists, 2, flags), ("run", LENS, lists, 5, flags + ["--sample_KTF"])]
+
+
+def run_port(root, lists, invocation):
+    """The port's CLI on one invocation of ``plan``, in this process, on one
+    torch thread (as in every pytest-xdist worker and in the golden's run:
+    the iteration-2 snapshot is then the golden's bit for bit)."""
+    args = plan(lists)[invocation]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return train_cli.main(_args(root, "torch", *args[:4], [*args[4], "--device", "cpu",
+                                                               "--vis_video_list_path", lists["val"]]))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def port_state(root, name):
+    """A snapshot of the port's run, converted back by to_jax."""
+    payload, _ = tckpt.load_snapshot(os.path.join(root, "ckpt_torch", "run"), name)
+    return to_jax_state(payload, json.dumps(SPEC))
+
+
+def _unflatten(golden, prefix):
+    tree = {}
+    for key in golden.files:
+        if key.startswith(prefix + "/"):
+            *path, leaf = key[len(prefix) + 1:].split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = golden[key]
+    return tree
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both CLIs' two invocations.  Before the second, vfi_tpu's
-    model_latest.ckpt is replaced by the port's, converted back by to_jax, so
-    both resume from one state: over steps from zero Adam moments, float
-    reassociation alone moves a run by more than the resume gates (the port's
-    own iteration-4 Adam moments differ by 5.7e-4 global-relative between one
-    torch thread and eight), and the second invocation is what resuming is."""
+def golden():
+    g = np.load(GOLDEN_PATH)
+    assert json.loads(str(g["meta"])) == json.loads(json.dumps(GOLDEN_META)), \
+        "tests/torch_golden_train_cli.npz was made on other inputs: rerun tests/make_torch_train_cli_golden.py"
+    return g
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, golden):
+    """The port's two invocations, and vfi_tpu's from the golden.  Before its
+    second invocation, vfi_tpu's model_latest.ckpt was replaced by the port's
+    iteration-2 snapshot, converted back by to_jax, so both resume from one
+    state: over steps from zero Adam moments, float reassociation alone moves
+    a run by more than the resume gates (the port's own iteration-4 Adam
+    moments differ by 5.7e-4 global-relative between one torch thread and
+    eight), and the second invocation is what resuming is."""
     root = str(tmp_path_factory.mktemp("train_cli"))
     lists = _lists(root, LENS, "clips")
-    vis = ["--vis_video_list_path", lists["val"]]
     _start_snapshot(root, "run")
-    flags = ["--save_latest_freq", "2", "--validate_freq", "2", "--device_normalize"]
-    plan = [("run", LENS, lists, 2, flags), ("run", LENS, lists, 5, flags + ["--sample_KTF"])]
-    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO, "XLA_FLAGS": ""}
-    stats = [train_cli.main(_args(root, "torch", *plan[0][:4], [*plan[0][4], "--device", "cpu", *vis]))]
-    payload, _ = tckpt.load_snapshot(os.path.join(root, "ckpt_torch", "run"), "model_latest.ckpt")
-    jckpt.save_snapshot(os.path.join(root, "port_at_2"), "model_latest.ckpt", *to_jax_state(payload, json.dumps(SPEC)))
-    r = subprocess.run([sys.executable, "-c", JAX_RUNNER, os.path.join(REPO, "cli", "train.py"),
-                        json.dumps([_args(root, "jax", *p) for p in plan]),
-                        os.path.join(root, "port_at_2", "model_latest.ckpt"),
-                        os.path.join(root, "ckpt_jax", "run", "model_latest.ckpt")],
-                       cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
-    assert r.returncode == 0, f"stdout:\n{r.stdout[-4000:]}\nstderr:\n{r.stderr[-4000:]}"
-    stats.append(train_cli.main(_args(root, "torch", *plan[1][:4], [*plan[1][4], "--device", "cpu", *vis])))
-    resumed = tckpt.load_snapshot(os.path.join(root, "ckpt_torch", "run"), "model_00000002.ckpt")[0]
-    return dict(root=root, lists=lists, resumed=to_jax_state(resumed, json.dumps(SPEC))[0], stats=stats)
+    stats = [run_port(root, lists, 0), run_port(root, lists, 1)]
+    with open(os.path.join(root, "jax_run.jsonl"), "w") as f:
+        f.write(str(golden["jax_log"]))
+    return dict(root=root, lists=lists, resumed=port_state(root, "model_00000002.ckpt")[0], stats=stats,
+                jax_iter4=(_unflatten(golden, "jax_iter4"), _unflatten(golden, "jax_iter4_counters")),
+                jax_start=_unflatten(golden, "port_at_2"))
 
 
 def _rel(got, want):
@@ -196,7 +225,7 @@ def test_resumed_snapshot_matches_vfi_tpu(runs):
     weights, the update since the resume, Adam moments, steps and counters."""
     payload, counters = tckpt.load_snapshot(os.path.join(runs["root"], "ckpt_torch", "run"), "model_00000004.ckpt")
     got, got_counters = to_jax_state(payload, json.dumps(SPEC))
-    want, want_counters = read_jax_snapshot(os.path.join(runs["root"], "ckpt_jax", "run", "model_00000004.ckpt"))
+    want, want_counters = runs["jax_iter4"]
     start = {"g_params": runs["resumed"].g_params, "d_params": runs["resumed"].d_params}
     assert int(got.step) == int(np.asarray(want["step"])) == 4 and got_counters["updates"] == 4
     assert abs(got_counters["sum_avg_ssim_err"] - float(want_counters["sum_avg_ssim_err"])) <= 1e-3
@@ -294,3 +323,27 @@ def test_train_refusals_and_tf32(runs, monkeypatch, tmp_path):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     assert os.path.isdir(root)
+
+
+def fingerprint(state) -> dict:
+    """What the golden keeps of the port's iteration-2 state (weights, SN
+    vectors, both Adam states, the step): per leaf, its sum, its sum of
+    squares and every 61st value, in float64."""
+    tree = {"g_params": state.g_params, "d_params": state.d_params, "d_sn": state.d_sn, "step": state.step,
+            **{name: {m: getattr(getattr(state, name)[0], m) for m in ("count", "mu", "nu")}
+               for name in ("g_opt", "d_opt")}}
+    return {k: np.concatenate([[v.sum(), (v * v).sum()], v.ravel()[::61]]) for k, v in _flat(tree).items()}
+
+
+def test_golden_resumed_from_this_port_state(runs):
+    """vfi_tpu's recorded run resumed from the port's iteration-2 snapshot:
+    that snapshot must still be the one this port writes (the fingerprints
+    of weights, SN vectors and Adam moments within global-L2-relative 1e-6,
+    the steps equal)."""
+    got, want = fingerprint(runs["resumed"]), _flat(runs["jax_start"])
+    assert sorted(got) == sorted(want) and len(want) > 100
+    for part in ("g_params", "d_params", "d_sn", "g_opt", "d_opt"):
+        sub = lambda tree: {k: v for k, v in tree.items() if k[0] == part}  # noqa: E731
+        assert _global_rel(sub(got), sub(want)) <= 1e-6, part
+    assert got[("step",)][0] == want[("step",)][0] == 2
+    assert all(got[k][0] == want[k][0] == 2 for k in want if k[-1] == "count")

@@ -8,19 +8,24 @@
 
 ``state_dict`` is a port state_dict, e.g. ``params_from_jax(flax_params)``;
 ``from_checkpoint`` reads the generator of a port snapshot
-(``utils/checkpoint.py``).  The model runs on ``cuda`` unless the caller
-passes ``device="cpu"``.
+(``utils/checkpoint.py``; ``cli.import_torch_checkpoint`` writes one from a
+reference checkpoint).  The model runs on ``cuda`` unless the caller
+passes ``device="cpu"``.  A host model (``OFFillInModel``, which has
+``host_forward``) needs no state_dict, snapshot, device or dtype: it runs on
+the host in float32, as in vfi_tpu::
+
+    ip = VideoInpainter("OFFillInModel")
 """
 
 from __future__ import annotations
 
 import os
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
-from .models.registry import ModelSpec, create_model
+from .models.registry import ModelSpec, create_model, is_host_model, model_config
 from .ops.image import BGR_LUMA
 from .utils import checkpoint as ckpt
 
@@ -43,22 +48,35 @@ def resolve_device(device=None) -> torch.device:
 
 
 class VideoInpainter:
-    def __init__(self, model: ModelSpec, state_dict: Mapping[str, torch.Tensor], device=None,
+    def __init__(self, model: ModelSpec, state_dict: Optional[Mapping[str, torch.Tensor]] = None, device=None,
                  dtype: torch.dtype = torch.float32):
+        if is_host_model(model):
+            self.model, self.device, self.dtype = create_model(model), None, torch.float32
+            self._host = self.model.host_forward
+            return
+        if state_dict is None:
+            raise ValueError(f"{model_config(model)['class']} has weights: pass a state_dict, or use from_checkpoint")
         self.device = resolve_device(device)
         self.dtype = dtype
+        self._host = None
         self.model = create_model(model)
         self.model.load_state_dict(state_dict)
         self.model.to(device=self.device, dtype=dtype).eval()
 
     @classmethod
-    def from_checkpoint(cls, model_key: ModelSpec, checkpoint_dir: str, snapshot: str = "model_best.ckpt",
-                        dtype: torch.dtype = torch.float32, device=None) -> "VideoInpainter":
-        """Serve the generator of the snapshot ``checkpoint_dir/snapshot``."""
+    def from_checkpoint(cls, model_key: ModelSpec, checkpoint_dir: Optional[str] = None,
+                        snapshot: str = "model_best.ckpt", dtype: torch.dtype = torch.float32,
+                        device=None) -> "VideoInpainter":
+        """Serve the generator of the snapshot ``checkpoint_dir/snapshot``
+        (a host model reads none)."""
+        if is_host_model(model_key):
+            return cls(model_key)
         payload, _ = ckpt.load_snapshot(checkpoint_dir, snapshot)
         return cls(model_key, payload["generator"], device=device, dtype=dtype)
 
-    def _to_model(self, frames_u8: np.ndarray, gray: bool) -> torch.Tensor:
+    @staticmethod
+    def _frames(frames_u8: np.ndarray, gray: bool) -> np.ndarray:
+        """uint8 RGB or single-channel frames -> the model's float32 BGR [-1, 1] video."""
         x = frames_u8.astype(np.float32) / 255.0
         if x.ndim == 4:  # [T, H, W, C] -> add batch
             x = x[None]
@@ -66,8 +84,10 @@ class VideoInpainter:
             x = x[..., ::-1]  # RGB -> BGR (the model's channel order)
             if gray:
                 x = (x @ np.asarray(BGR_LUMA, np.float32))[..., None]
-        x = torch.from_numpy(np.ascontiguousarray(x * 2.0 - 1.0))
-        return x.to(device=self.device, dtype=self.dtype)
+        return np.ascontiguousarray(x * 2.0 - 1.0)
+
+    def _to_model(self, frames_u8: np.ndarray, gray: bool) -> torch.Tensor:
+        return torch.from_numpy(self._frames(frames_u8, gray)).to(device=self.device, dtype=self.dtype)
 
     @torch.inference_mode()
     def forward(self, T: int, preceding: torch.Tensor, following: torch.Tensor) -> torch.Tensor:
@@ -80,9 +100,12 @@ class VideoInpainter:
         Accepts RGB (C=3) or single-channel input; returns the same layout.
         """
         squeeze = preceding_u8.ndim == 4
-        gray = self.model.c_dim == 1 and preceding_u8.shape[-1] == 3
-        pred = self.forward(T, self._to_model(preceding_u8, gray), self._to_model(following_u8, gray))
-        pred = pred.float().cpu().numpy()
+        gray = getattr(self.model, "c_dim", 3) == 1 and preceding_u8.shape[-1] == 3
+        if self._host is not None:
+            pred = self._host(T, self._frames(preceding_u8, gray), self._frames(following_u8, gray))["pred"]
+        else:
+            pred = self.forward(T, self._to_model(preceding_u8, gray), self._to_model(following_u8, gray))
+            pred = pred.float().cpu().numpy()
         out = np.clip((pred + 1.0) / 2.0, 0.0, 1.0) * 255.0
         out = np.round(out).astype(np.uint8)
         if out.shape[-1] == 3:

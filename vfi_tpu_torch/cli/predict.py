@@ -14,7 +14,10 @@ pred_middle_forward/backward and interp_net_outputs_1/2 with
 saving (predict.py:69-95).
 
 Runs on ``--device`` (default ``cuda``; without a GPU the CPU must be asked
-for).  ``--dtype float32`` turns TF32 off for matmuls and cuDNN, so float32
+for).  A host model (``--model_key OFFillInModel``, ``models/optical_flow.py``)
+runs on the host instead, as in vfi_tpu: no snapshot, no dtype cast, no int8,
+its inputs normalized on the host under ``--device_normalize``; it writes the
+same PNGs.  ``--dtype float32`` turns TF32 off for matmuls and cuDNN, so float32
 means float32; ``main`` puts both settings back as it found them when it
 returns or raises.  Up to ``VFI_INFLIGHT`` batches (default 2) are in flight: a
 batch's outputs are quantized to uint8 on the device and copied to pinned
@@ -64,7 +67,7 @@ import torch
 from ..api import resolve_device
 from ..data.datasets import ContiguousVideoClipDataset, DisjointVideoClipDataset, batch_iterator
 from ..data.prefetch import Prefetcher
-from ..models.registry import create_model
+from ..models.registry import create_model, is_host_model
 from ..nn import quant
 from ..ops.image import BGR_LUMA, frames_from_uint8
 from ..ops.metrics import psnr, quantize_uint8, ssim
@@ -124,7 +127,6 @@ def _predict(opt) -> dict:
 
 def _serve(opt, device, groups) -> dict:
     """The predictions of one rank (of one process without ``groups``)."""
-    cuda = device.type == "cuda"
     main, world, shard = is_main(), world_size(), rank()
     dgroup, hgroup = (groups.device, groups.host) if groups is not None else (None, None)
     say = print if main else (lambda *args, **kwargs: None)
@@ -150,7 +152,7 @@ def _serve(opt, device, groups) -> dict:
 
     validate_n = opt.validate_quant if opt.validate_quant is not None else (4 if opt.quantize != "none" else 0)
     model_fp = None
-    if opt.quantize == "none":
+    if opt.quantize == "none" or is_host_model(opt.model_key):
         model = create_model(opt.model_key)  # VFI_INT8, where set, as in vfi_tpu
     else:  # --quantize decides, and the gate's reference model is float
         saved_int8 = os.environ.pop("VFI_INT8", None)
@@ -161,15 +163,22 @@ def _serve(opt, device, groups) -> dict:
         finally:
             if saved_int8 is not None:
                 os.environ["VFI_INT8"] = saved_int8
-    env = create_eval_environment(model, TrainConfig(K=opt.K, T=opt.T, F=opt.F))
-    if env.needs_snapshot:
-        # Snapshots hold the whole training state; serving needs the generator.
-        payload, _ = ckpt.load_snapshot(os.path.join(opt.checkpoints_dir, opt.name), opt.snapshot_file_name)
-        model.load_state_dict(payload["generator"])
-        if model_fp is not None:
-            model_fp.load_state_dict(payload["generator"])
-        del payload
-    model.to(device=device, dtype=dtype).eval()
+    # A host model (OFFillInModel) runs on the host, as in vfi_tpu: no
+    # snapshot, dtype cast, device, int8 calibration or validation gate.
+    host_forward = getattr(model, "host_forward", None)
+    env = None
+    if host_forward is None:
+        env = create_eval_environment(model, TrainConfig(K=opt.K, T=opt.T, F=opt.F))
+        if env.needs_snapshot:
+            # Snapshots hold the whole training state; serving needs the generator.
+            payload, _ = ckpt.load_snapshot(os.path.join(opt.checkpoints_dir, opt.name), opt.snapshot_file_name)
+            model.load_state_dict(payload["generator"])
+            if model_fp is not None:
+                model_fp.load_state_dict(payload["generator"])
+            del payload
+        model.to(device=device, dtype=dtype).eval()
+    quantized = opt.quantize != "none" and env is not None and env.needs_snapshot
+    cuda = device.type == "cuda" and host_forward is None
 
     def host_normalize(u8: np.ndarray) -> np.ndarray:
         """uint8 BGR -> the dataset's float pipeline ([-1,1], gray if c_dim=1);
@@ -193,7 +202,7 @@ def _serve(opt, device, groups) -> dict:
         """The preceding and following frames of stacked clips."""
         return clips[:, :K], (clips[:, K:] if opt.disjoint_clips else clips[:, K + T:])
 
-    if opt.quantize == "int8" and env.needs_snapshot:
+    if quantized and opt.quantize == "int8":
         # Static scales: the running max of each conv's |input| over the first
         # clips, from zero, in the serving dtype (nn/quant.py); on rank 0, and
         # sent from there to every rank.
@@ -211,7 +220,7 @@ def _serve(opt, device, groups) -> dict:
         broadcast_(amax, dgroup)
         digest = hashlib.sha256(torch.stack(amax).float().cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"{tag}int8 activation scales sha256 {digest}", flush=True)
-    if opt.quantize != "none" and validate_n > 0 and env.needs_snapshot and len(ds) > 0:
+    if quantized and validate_n > 0 and len(ds) > 0:
         verdict = None
         if main:
             verdict = _validate_quant(opt, ds, env, model_fp, device, validate_n, host_normalize, to_model, context)
@@ -323,26 +332,39 @@ def _serve(opt, device, groups) -> dict:
                     write_batch(*inflight.popleft())
                 stop_trace()
         targets = batch["targets"]
-        preceding = to_model(targets[:, :K])
-        following = to_model(targets[:, -F:])
         n_real = len(targets)
-        if n_real < opt.batch_size and not opt.no_pad_final_batch:
-            # One batch shape for the whole run: pad the ragged final batch by
-            # repeating the last clip.  write_batch writes the real clips only.
-            pad = opt.batch_size - n_real
-            preceding = torch.cat([preceding, preceding[-1:].expand(pad, *preceding.shape[1:])])
-            following = torch.cat([following, following[-1:].expand(pad, *following.shape[1:])])
-            print(f"{tag}padded final batch {n_real} -> {opt.batch_size} "
-                  "(one batch shape; --no_pad_final_batch disables)", flush=True)
+        if host_forward is not None:
+            preceding, following = targets[:, :K], targets[:, -F:]
+            if opt.device_normalize:
+                # --device_normalize ships uint8 batches, but the host model
+                # takes float32 BGR in [-1, 1]: normalize on the host.
+                preceding, following = host_normalize(preceding), host_normalize(following)
+
+            def forward():
+                return {k: torch.from_numpy(v) for k, v in host_forward(T, preceding, following).items()}
+        else:
+            preceding = to_model(targets[:, :K])
+            following = to_model(targets[:, -F:])
+            if n_real < opt.batch_size and not opt.no_pad_final_batch:
+                # One batch shape for the whole run: pad the ragged final batch by
+                # repeating the last clip.  write_batch writes the real clips only.
+                pad = opt.batch_size - n_real
+                preceding = torch.cat([preceding, preceding[-1:].expand(pad, *preceding.shape[1:])])
+                following = torch.cat([following, following[-1:].expand(pad, *following.shape[1:])])
+                print(f"{tag}padded final batch {n_real} -> {opt.batch_size} "
+                      "(one batch shape; --no_pad_final_batch disables)", flush=True)
+
+            def forward():
+                return env.forward_test(T, preceding, following)
         if cuda:
             span = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             span[0].record()
-            out = env.forward_test(T, preceding, following)
+            out = forward()
             span[1].record()
             forward_spans.append(span)
         else:
             t0 = time.perf_counter()
-            out = env.forward_test(T, preceding, following)
+            out = forward()
             forward_spans.append(time.perf_counter() - t0)
         inflight.append((*fetch(out, n_real), targets, batch["clip_label"]))
         del out, preceding, following

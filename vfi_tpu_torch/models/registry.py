@@ -1,7 +1,8 @@
-"""Model registry (counterpart of ``vfi_tpu/models/registry.py``): every
-vfi_tpu key but ``OFFillInModel`` (ROADMAP.md queue 1 item 7), which raises
-``KeyError``.  The two legacy SCT classes have no key and are reached by a
-JSON spec, as in vfi_tpu.
+"""Model registry (counterpart of ``vfi_tpu/models/registry.py``): all 30 of
+vfi_tpu's keys.  The two legacy SCT classes have no key and are reached by a
+JSON spec, as in vfi_tpu.  ``OFFillInModel`` is a host model
+(``models/optical_flow.py``): not a torch module, no weights, served by its
+``host_forward``.
 
 A model is named by a registry key, by a JSON file, or by a JSON literal,
 as in vfi_tpu: ``{"class": name, "args": [...], "kwargs": {...}}`` (the
@@ -19,15 +20,14 @@ from ..nn.quant import quantize_convs
 from .fill_in import (BidirectionalSimpleAverageFillInModel, BidirectionalTimeWeightedAverageFillInModel,
                       MCNetFillInModel, TAIFillInModel, TimeWeightedPFFillInModel, TWIFillInModel)
 from .legacy_sct import SCTSkipConFillInModel, SCTSuperSkipConFillInModel
+from .optical_flow import OFFillInModel
 from .sct import SCT_CLASSES
 from .slomo import SloMoFillInModel
 
 _CLASSES = {cls.__name__: cls for cls in (
     TAIFillInModel, TWIFillInModel, BidirectionalSimpleAverageFillInModel,
     BidirectionalTimeWeightedAverageFillInModel, MCNetFillInModel, TimeWeightedPFFillInModel, SloMoFillInModel,
-    *SCT_CLASSES.values(), SCTSkipConFillInModel, SCTSuperSkipConFillInModel)}
-
-_UNPORTED = "OFFillInModel is not ported yet: ROADMAP.md queue 1 item 7"
+    *SCT_CLASSES.values(), SCTSkipConFillInModel, SCTSuperSkipConFillInModel, OFFillInModel)}
 
 
 def _kth(cls: str, c_dim: int, num_block: int) -> Dict[str, Any]:
@@ -41,6 +41,7 @@ def _mcnet(cls: str, c_dim: int) -> Dict[str, Any]:
 _REGISTRY: Dict[str, Dict[str, Any]] = {
     "TAI_gray": _kth("TAIFillInModel", 1, 5),
     "TAI_color": _kth("TAIFillInModel", 3, 4),
+    "OFFillInModel": {"class": "OFFillInModel", "kwargs": {}},
     "TimeWeightedInterpolationFillInModel_gray": _kth("TWIFillInModel", 1, 5),
     "TimeWeightedInterpolationFillInModel_color": _kth("TWIFillInModel", 3, 4),
     "MCNet_gray": _mcnet("MCNetFillInModel", 1),
@@ -89,12 +90,17 @@ def model_config(model: ModelSpec) -> Dict[str, Any]:
         except ValueError:
             raise KeyError(
                 f"Unknown model key {model!r}; not a registry key, file, or JSON literal. "
-                f"Known keys: {model_keys()} ({_UNPORTED})"
+                f"Known keys: {model_keys()}"
             ) from None
         spec = _json_spec(info)
     if spec.get("class") not in _CLASSES:
-        raise KeyError(f"unknown model class {spec.get('class')!r}; ported: {sorted(_CLASSES)} ({_UNPORTED})")
+        raise KeyError(f"unknown model class {spec.get('class')!r}; known: {sorted(_CLASSES)}")
     return spec
+
+
+def is_host_model(model: ModelSpec) -> bool:
+    """Whether the model runs on the host by its ``host_forward`` (no weights, no device)."""
+    return hasattr(_CLASSES[model_config(model)["class"]], "host_forward")
 
 
 def create_model(model: ModelSpec):
@@ -103,10 +109,11 @@ def create_model(model: ModelSpec):
     ``VFI_INT8``, read here as vfi_tpu's ``Conv`` helper reads it, makes every
     shared conv an int8 ``nn.quant.QConv``: ``1`` with dynamic scales, ``2``
     with static ones (calibrated by ``nn.quant.calibrate``); anything else
-    leaves the convs float.  The state_dict is the same either way."""
+    leaves the convs float.  The state_dict is the same either way.  A host
+    model (``host_forward``) has no convs and ignores it, as in vfi_tpu."""
     cfg = model_config(model)
     m = _CLASSES[cfg["class"]](*cfg.get("args", []), **cfg.get("kwargs", {}))
     mode = os.environ.get("VFI_INT8", "0")
-    if mode in ("1", "2"):
+    if mode in ("1", "2") and not hasattr(m, "host_forward"):
         quantize_convs(m, static=mode == "2")
     return m

@@ -18,7 +18,9 @@ with ``weights_only=True``:
      "counters": {name: int | float}, "rng": uint8 tensor}
 
 (``discriminator`` and ``d_opt`` only where the state has a discriminator,
-``rng`` only where it has a generator).
+``rng`` only where it has a generator).  A snapshot imported from a
+reference checkpoint (``cli/import_torch_checkpoint.py``) holds no optimizer
+state and no ``rng``: it serves, and loading it into a training state raises.
 
 ``scripts/convert_checkpoint_torch.py`` converts vfi_tpu snapshots to this
 layout and back.
@@ -82,6 +84,9 @@ def load_snapshot(save_dir: str, name: str, state: Optional[Any] = None) -> Tupl
     payload = torch.load(os.path.join(path, PAYLOAD), map_location="cpu", weights_only=True)
     if state is None:
         return payload, payload["counters"]
+    if "g_opt" not in payload:
+        raise ValueError(f"the snapshot at {path} holds no optimizer state (an imported reference checkpoint, "
+                         "cli/import_torch_checkpoint.py): it serves, but does not resume training")
     if (state.discriminator is None) != ("discriminator" not in payload):
         raise ValueError(f"the snapshot at {path} {'has a' if 'discriminator' in payload else 'has no'} discriminator, "
                          f"the training state {'has none' if state.discriminator is None else 'has one'}")
