@@ -103,6 +103,25 @@ Phases, one JSON line each:
                    naming OpenCV or scipy where either is missing, else two
                    clips served by the predict CLI; the outcome and the
                    seconds of each step printed.
+  7c. figures    — the figure and animation tools (``eval/animate``,
+                   ``eval/figures``, ``eval/records`` and their six CLIs) fed
+                   by ``cli.predict`` on ``predict``'s snapshot and first 4
+                   clips, bf16 ``--intermediate_preds`` at B=4, under two
+                   experiment names (``--quantize none`` and ``int8``): 2
+                   banded launches per forward, 180 int8 conv launches per
+                   int8 forward, no plain sepconv or int8 call, every
+                   intermediate PNG; ``cli.compute_quant_results`` on the
+                   card; then animate_qual_results ``--create_gt_gif`` (a
+                   pool of 2), generate_comparison_videos,
+                   compare_visual_results (gif, mp4, images-uncomp; the PDF
+                   grid), compare_intermediate_preds (both subcommands),
+                   paper_figures (register, images, plot) and the unified
+                   boxplot: each output's frame count and size from K, T, F
+                   and the layout, the image strip pixel for pixel against
+                   its source PNGs; a tool whose package (imageio, OpenCV,
+                   matplotlib) is missing must raise the ImportError naming
+                   it.  Prints the host packages found and each step's
+                   seconds.
   8. train_golden — two f32 training steps of TAI_gray at B=2 against the JAX
                    training golden (``tests/torch_golden_train_tai_gray.npz``):
                    loss terms within rel 1e-3, step-1 gradient projections
@@ -166,9 +185,10 @@ Phases, one JSON line each:
                    clips: the same scales (sha256) and gate verdict on both
                    ranks, pred_middle at uint8 PSNR >= 45 dB of the
                    one-process int8 run; launches per rank.
- 15-21. the model zoo (Super SloMo, SCT), none of which runs sepconv: each
-                   path gates 0 launches of every kernel; ``zoo`` prints the
-                   seven phases' wall seconds.
+ 15-22. the model zoo (Super SloMo, SCT), none of which runs sepconv: each
+                   path gates 0 launches of every sepconv kernel, and of the
+                   int8 kernel but in ``zoo_int8``; ``zoo`` prints the
+                   phases' wall seconds.
      slomo_golden — SloMoFillInModel_color at 256x320, B=2, T=5, f32, in both
                    warp modes, against ``tests/torch_golden_slomo_color.npz``:
                    max-abs <= 5e-3 at 4096 points of each output, uint8 PSNR
@@ -198,10 +218,19 @@ Phases, one JSON line each:
                    B=8 from a port snapshot: 20 iterations and a resume to
                    30, both branches in the events; then f32 B=2 against
                    ``SCTEnvironment.train_step``.
+     zoo_int8    — SloMo_color (256x320, K=F=4, T=5) and SCT Forward
+                   (128x128, K=T=F=5) served by ``cli.predict`` from seeded
+                   full-width weights, bf16 B=4 on 4 clips, under
+                   ``--quantize int8`` and ``int8_dynamic`` with the
+                   ``--validate_quant`` gate: every int8 conv call of
+                   calibration, gate and loop equal to its plain
+                   recomputation (0 ulps), one launch per call, no plain
+                   call; then int8 static and dynamic timed in turns with
+                   the float bf16 forward (SloMo B=16, SCT B=8).
      timing_zoo  — ms per batch serving SloMo (bf16 B=16, f32 B=2) and SCT
                    Forward and RandomB (bf16 B=8), ms per bf16 training step
                    of SloMo (B=8, 160x192) and SCT Forward (B=8).
- 22. timing      — CUDA-event times of each kernel, its plain version and the
+ 23. timing      — CUDA-event times of each kernel, its plain version and the
                    serving forwards (the forwards at both serving and both
                    training shapes, the adjoints at both training shapes;
                    with ``--baseline``, another checkout's four kernels in
@@ -1365,6 +1394,17 @@ def _time_in_turns(fns: dict, iters: int = 5) -> dict:
     return {name: (sum(v) / len(v), mem[name]) for name, v in out.items()}
 
 
+def qconv_plain(m, x: torch.Tensor, plain) -> torch.Tensor:
+    """The QConv ``m``'s call on ``x`` recomputed by the plain versions
+    (``plain["quantize_int8_plain"]``, ``plain["qconv_int8_plain"]``) from the
+    module's own scales (a static module's amax as it stands)."""
+    amax = m.act_amax if m.static else x.abs().amax().float()
+    x_scale = torch.clamp_min(amax * quant.INV_127, quant.EPS)
+    wq, w_scale = m.quantized_weight()
+    return plain["qconv_int8_plain"](plain["quantize_int8_plain"](x, x_scale), wq, x_scale * w_scale,
+                                     m.bias.detach().float(), x.dtype)
+
+
 def _calls_vs_plain(model, calls) -> float:
     """Each recorded QConv call (path, x, y) recomputed by the plain versions
     on the same input and the module's own scales: the worst |y - plain| in
@@ -1372,13 +1412,8 @@ def _calls_vs_plain(model, calls) -> float:
     worst = 0.0
     convs = quant.qconvs(model)
     for path, x, y in calls:
-        m = convs[path]
-        amax = m.act_amax if m.static else x.abs().amax().float()
-        x_scale = torch.clamp_min(amax * quant.INV_127, quant.EPS)
-        wq, w_scale = m.quantized_weight()
-        want = qconv_ops.qconv_int8_plain(qconv_ops.quantize_int8_plain(x, x_scale), wq, x_scale * w_scale,
-                                          m.bias.detach().float(), x.dtype)
-        worst = max(worst, float(((y.float() - want.float()).abs() / f32_ulp(want.float())).max()))
+        want = qconv_plain(convs[path], x, vars(qconv_ops)).float()
+        worst = max(worst, float(((y.float() - want).abs() / f32_ulp(want)).max()))
     return worst
 
 
@@ -1612,12 +1647,20 @@ def reference_weights_(mirror: torch.nn.Module, seed: int) -> None:
             t.copy_(torch.from_numpy(a.astype(np.float32)))
 
 
+# The plain versions a CUDA path must never call: the sepconv forwards (by
+# the dispatcher or ``SepConv``) and the int8 quantize and conv (by
+# ``ops.qconv.qconv_int8``).
+PLAIN = {"sepconv_banded": sepconv_ops, "sepconv_direct": sepconv_ops, "quantize_int8_plain": qconv_ops,
+         "qconv_int8_plain": qconv_ops}
+
+
 @contextlib.contextmanager
-def plain_sepconv_calls():
-    """Counts the calls of the plain sepconv forwards (``sepconv_banded``,
-    ``sepconv_direct``) made inside, by the dispatcher or ``SepConv``."""
-    calls = {"sepconv_banded": 0, "sepconv_direct": 0}
-    saved = {n: getattr(sepconv_ops, n) for n in calls}
+def plain_calls():
+    """Counts the calls of the ``PLAIN`` functions made inside through their
+    modules; yields (the counts, the functions themselves, for checks that
+    call them uncounted)."""
+    calls = dict.fromkeys(PLAIN, 0)
+    saved = {n: getattr(module, n) for n, module in PLAIN.items()}
 
     def counted(name):
         def call(*args, **kwargs):
@@ -1625,13 +1668,13 @@ def plain_sepconv_calls():
             return saved[name](*args, **kwargs)
         return call
 
-    for name in calls:
-        setattr(sepconv_ops, name, counted(name))
+    for name, module in PLAIN.items():
+        setattr(module, name, counted(name))
     try:
-        yield calls
+        yield calls, saved
     finally:
         for name, fn in saved.items():
-            setattr(sepconv_ops, name, fn)
+            setattr(PLAIN[name], name, fn)
 
 
 def phase_reference_import(root: str, videolist: str, card: str) -> dict:
@@ -1684,7 +1727,7 @@ def phase_reference_import(root: str, videolist: str, card: str) -> dict:
     pc, fc = torch.from_numpy(p).cuda(), torch.from_numpy(f).cuda()
     torch.cuda.synchronize()
     _reset_launch_counts()
-    with plain_sepconv_calls() as plain, torch.inference_mode():
+    with plain_calls() as (plain, _), torch.inference_mode():
         t0 = time.perf_counter()
         out = ip.model(T, pc, fc)
         torch.cuda.synchronize()
@@ -1710,7 +1753,7 @@ def phase_reference_import(root: str, videolist: str, card: str) -> dict:
     for key, (err, psnr) in res.items():
         gate(err <= 5e-3, f"reference_import: {key} max_abs {err} > 5e-3 against the mirror")
         gate(psnr >= 45.0, f"reference_import: {key} uint8 PSNR {psnr} dB < 45 against the mirror")
-    gate(not any(plain.values()), f"reference_import: the plain sepconv ran: {plain}")
+    gate(not any(plain.values()), f"reference_import: a plain version ran: {plain}")
     _gate_launches("reference_import", paths["reference_import"], {"sepconv_fwd_mxu": 2})
 
     # Serve, score, summarize.
@@ -1781,6 +1824,256 @@ def phase_reference_import(root: str, videolist: str, card: str) -> dict:
     emit("reference_import", nvidia_smi=card, offillinmodel=outcome, wall_s=time.perf_counter() - t_phase,
          host_packages={m: importlib.util.find_spec(m) is not None for m in ("cv2", "scipy", "matplotlib", "PIL")},
          **seconds)
+    return paths
+
+
+# The figure and animation tools (eval/animate, eval/figures, eval/records
+# and the six CLIs on them) fed by predict's snapshot and clips: TAI_gray at
+# bf16 with --intermediate_preds, at --quantize none and int8.  The layout of
+# compare_visual_results' video frames: 320x240 frames, 4-pixel borders and
+# padding, 20 pixels between the labels and the frames.
+FIGURES = dict(clips=4, batch=4, dataset="KTH", shown=2, io_key="5_10", frame_indexes=(0, 5, 7, 10, 14),
+               exps={"none": "tai_gray_bf16", "int8": "tai_gray_int8"}, models={"none": "bi-TAI", "int8": "bi-TAI int8"})
+VIDEO_FRAME, VIDEO_BORDER, VIDEO_PADDING, VIDEO_LABEL_PAD, LABEL_H = (320, 240), 4, 4, 20, 18
+HOST_PACKAGES = ("cv2", "PIL", "imageio", "matplotlib")
+# The predict CLI's --validate_quant line (its scores of the quantized and the float32 model).
+VALIDATE_LINE = re.compile(r"validate_quant \(\d+ clips\): PSNR f32 ([-0-9.]+) -> quantized ([-0-9.]+) dB .*"
+                           r"agreement ([-0-9.]+) dB")
+
+
+def host_packages() -> dict:
+    """{package: its version, or None where it is not installed}."""
+    found = {}
+    for name in HOST_PACKAGES:
+        try:
+            found[name] = str(getattr(importlib.import_module(name), "__version__", "installed"))
+        except ImportError:
+            found[name] = None
+    return found
+
+
+def run_tool(name: str, needs: tuple, fn, found: dict, seconds: dict) -> bool:
+    """Run one tool (its stdout kept back).  Where a package in ``needs`` is
+    missing it must raise the ImportError that names it (gated); returns
+    whether it ran."""
+    missing = [m for m in needs if found[m] is None]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            fn()
+    except ImportError as e:
+        gate(e.name in missing and f"needs {e.name}, which is not installed" in str(e),
+             f"figures: {name} raised {e!r}, with {missing or 'no package'} missing")
+        ran = False
+    else:
+        gate(not missing, f"figures: {name} ran without {missing}")
+        ran = True
+    seconds[f"{name}_s"] = time.perf_counter() - t0
+    return ran
+
+
+def _rgb(a: np.ndarray) -> np.ndarray:
+    return np.repeat(a.reshape(a.shape[0], a.shape[1], -1), 3, axis=2) if a.ndim == 2 or a.shape[-1] == 1 else a
+
+
+def phase_figures(root: str, videolist: str, per_forward: int, card: str) -> dict:
+    """The figure and animation tools on the card's machine, fed by
+    ``cli.predict`` at TAI_gray's full width (``phase_predict``'s snapshot,
+    its first 4 clips, bf16 ``--device_normalize --intermediate_preds`` at
+    B=4) under two experiment names, ``--quantize none`` and ``int8``: 2
+    banded launches per forward, ``per_forward`` int8 conv launches per int8
+    forward (calibration, the gate's int8 forward, the loop), no plain
+    sepconv or int8 call, every intermediate PNG; then
+    ``cli.compute_quant_results`` on the card; then the tools, each output's
+    frame count and size computed from K, T, F and the layout, the image
+    strip pixel for pixel against the source PNGs (read by ``utils/png.py``);
+    the tools whose optional package (imageio, OpenCV, matplotlib) is
+    missing must raise the ImportError that names it.  Returns the launches
+    of the two predict runs."""
+    from PIL import Image
+
+    from vfi_tpu_torch.cli import animate_qual_results as animate_cli
+    from vfi_tpu_torch.cli import compare_intermediate_preds as intermediate_cli
+    from vfi_tpu_torch.cli import compare_visual_results as visual_cli
+    from vfi_tpu_torch.cli import generate_comparison_videos as comparison_cli
+    from vfi_tpu_torch.cli import generate_unified_boxplot_fig as boxplot_cli
+    from vfi_tpu_torch.cli import paper_figures as paper_cli
+
+    cfg, pcfg = FIGURES, PREDICT
+    K, T, F, hw = pcfg["K"], pcfg["T"], pcfg["F"], pcfg["hw"]
+    n = K + T + F
+    t_phase = time.perf_counter()
+    found = host_packages()
+    print(f"figures: host packages {found}", flush=True)
+    base = os.path.join(root, "figures")
+    results, out = os.path.join(base, "results"), os.path.join(base, "out")
+    lst = _head(videolist, cfg["clips"], os.path.join(root, "list_figures.txt"))
+    clips = [f"clip{i}.npy_1-{pcfg['frames']}" for i in range(cfg["clips"])]
+    shown = clips[:cfg["shown"]]
+    exps = list(cfg["exps"].values())
+    names = sorted([f"gt_preceding_{t:04d}.png" for t in range(K)] + [f"gt_following_{t:04d}.png" for t in range(K + T, n)]
+                   + [f"{prefix}_{t:04d}.png" for prefix in ("gt_middle", "pred_middle") + tuple(
+                       p for _, p in predict_cli.INTERMEDIATE_PREDS) for t in range(K, K + T)])
+    seconds, paths = {}, {}
+
+    # 1. Predict, under two experiment names.
+    batches = -(-cfg["clips"] // cfg["batch"])
+    for mode, exp in cfg["exps"].items():
+        qual = os.path.join(results, cfg["dataset"], "images", exp)
+        int8 = mode != "none"
+        stages = {}
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain_calls() as (plain, _), stage_launches(stages):
+            stats, stdout = run_predict(_predict_args(pcfg, root, lst, qual, "bfloat16", cfg["batch"], [
+                "--device_normalize", "--intermediate_preds", "--quantize", mode]))
+        seconds[f"predict_{mode}_s"] = time.perf_counter() - t0
+        path = f"figures_predict_{mode}"
+        paths[path] = launches = _launch_counts()
+        pngs = _pngs(qual)
+        gate_lines = [ln for ln in stdout.splitlines() if VALIDATE_LINE.search(ln)]
+        emit("figures_predict", quantize=mode, experiment=exp, dtype="bfloat16", batch=cfg["batch"],
+             clips=stats["clips"], loop_s=stats["loop_s"], forward_s=stats["forward_s"], stage_launches=stages,
+             plain_calls=plain, gate_line=gate_lines, pngs_per_folder=sorted({len(v) for v in pngs.values()}),
+             **launches)
+        gate(not any(plain.values()), f"figures {mode}: a plain version ran: {plain}")
+        gate(sorted(pngs) == clips and all(v == names for v in pngs.values()),
+             f"figures {mode}: wrote {sorted(pngs)} with {sorted({len(v) for v in pngs.values()})} PNGs each, "
+             f"want {clips} with the {len(names)} names of K, T, F and --intermediate_preds")
+        forwards = batches + (2 if int8 else 0)  # + calibration and the gate's int8 forward
+        _gate_launches(path, launches, {"sepconv_fwd_mxu": 2 * forwards + (2 if int8 else 0),  # + the gate's f32 one
+                                        "qconv_int8": per_forward * forwards if int8 else 0})
+        if int8:
+            gate(len(gate_lines) == 1 and "REFUSED" not in stdout, f"figures int8: validate_quant lines {gate_lines}")
+            for stage, want in (("calibration", per_forward), ("gate", per_forward)):
+                got = stages.get(stage, {}).get("qconv_int8", 0)
+                gate(got == want, f"figures int8 {stage}: qconv_int8 launched {got}, want {want}")
+
+    # 2. Score, on the card: results.npz under the boxplot's layout, copied to paper_figures plot's.
+    t0 = time.perf_counter()
+    for exp in exps:
+        quant_root = os.path.join(results, f"{cfg['dataset']}-test_data_list_T={T}", "quantitative", exp)
+        with contextlib.redirect_stdout(io.StringIO()):
+            quant_cli.main([os.path.join(results, cfg["dataset"], "images", exp), quant_root, str(K), str(T)])
+        z = np.load(os.path.join(quant_root, "results.npz"))
+        gate(z["psnr"].shape == (cfg["clips"], T) and bool(np.isfinite(z["psnr"]).all() & np.isfinite(z["ssim"]).all()),
+             f"figures: {exp}'s results.npz psnr {z['psnr'].shape}")
+        plot_root = os.path.join(results, "quantitative", cfg["dataset"], exp)
+        os.makedirs(plot_root, exist_ok=True)
+        shutil.copy(os.path.join(quant_root, "results.npz"), plot_root)
+    seconds["score_s"] = time.perf_counter() - t0
+
+    # 3-4. The tools.
+    visual = ["--results_root", results, "--dataset_name", cfg["dataset"], "--clip_names", *shown, "--exp_names",
+              *exps, "--total_num_frames", str(n)]
+    registry = os.path.join(out, "records", "experiments.json")
+    font = visual_cli._font(40)
+    label_w = max(visual_cli._text_width_px(font, label) for label in exps + ["Ground truth"])
+    (fw, fh), b, pad = VIDEO_FRAME, VIDEO_BORDER, VIDEO_PADDING
+    canvas = (label_w + VIDEO_LABEL_PAD + len(shown) * (fw + 2 * b) + (len(shown) - 1) * pad,
+              (len(exps) + 1) * (fh + 2 * b) + len(exps) * pad)
+    frames = {}
+
+    def gif(path, size):
+        with Image.open(path) as im:
+            frames[os.path.relpath(path, base)] = (im.n_frames, im.size)
+            gate((im.n_frames, im.size) == (n, size), f"figures: {path} has {im.n_frames} frames of {im.size}, "
+                                                      f"want {n} of {size}")
+
+    qual_none = os.path.join(results, cfg["dataset"], "images", exps[0])
+    if run_tool("animate_qual_results", ("imageio",), lambda: animate_cli.main(
+            [qual_none, "--create_gt_gif", "--num_workers", "2"]), found, seconds):
+        for clip in clips:
+            for name in ("pred_final.gif", "gt.gif"):
+                gif(os.path.join(qual_none, clip, name), (hw, hw))
+    if run_tool("generate_comparison_videos", ("imageio",), lambda: comparison_cli.main(
+            ["--results_root", os.path.join(results, cfg["dataset"]), "--exp_names", *exps, "--clip_names", *shown,
+             "--save_root", os.path.join(out, "comparison")]), found, seconds):
+        for clip in shown:
+            gif(os.path.join(out, "comparison", f"{clip}.gif"), (hw, len(exps) * (hw + LABEL_H)))
+    if run_tool("compare_visual_results_gif", ("imageio",), lambda: visual_cli.main(
+            visual + ["--dest_path", os.path.join(out, "gif"), "--no_pdf", "--video_type", "gif"]), found, seconds):
+        gif(os.path.join(out, "gif", "video.gif"), canvas)
+    if run_tool("compare_visual_results_mp4", ("cv2",), lambda: visual_cli.main(
+            visual + ["--dest_path", os.path.join(out, "mp4"), "--no_pdf", "--video_type", "mp4"]), found, seconds):
+        import cv2
+
+        cap = cv2.VideoCapture(os.path.join(out, "mp4", "video.mp4"))
+        sizes = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            sizes.append((frame.shape[1], frame.shape[0]))
+        cap.release()
+        frames["out/mp4/video.mp4"] = (len(sizes), sorted(set(sizes)))
+        gate(len(sizes) == n and set(sizes) == {canvas}, f"figures: video.mp4 decoded to {len(sizes)} frames of "
+                                                         f"{sorted(set(sizes))}, want {n} of {canvas}")
+    run_tool("compare_visual_results_images_uncomp", (), lambda: visual_cli.main(
+        visual + ["--dest_path", os.path.join(out, "uncomp"), "--no_pdf", "--video_type", "images-uncomp"]),
+        found, seconds)
+    uncomp = sorted(os.listdir(os.path.join(out, "uncomp", "video_frames")))
+    sizes = {Image.open(os.path.join(out, "uncomp", "video_frames", u)).size for u in uncomp}
+    frames["out/uncomp/video_frames"] = (len(uncomp), sorted(sizes))
+    gate(uncomp == [f"{t:02d}.png" for t in range(n)] and sizes == {canvas},
+         f"figures: images-uncomp wrote {uncomp} of {sorted(sizes)}, want {n} frames of {canvas}")
+
+    def register():
+        for mode, exp in cfg["exps"].items():
+            paper_cli.main(["register", "--registry", registry, "--dataset", cfg["dataset"], "--model",
+                            cfg["models"][mode], "--io_key", cfg["io_key"], "--exp_name", exp])
+
+    run_tool("paper_figures_register", (), register, found, seconds)
+    with open(registry) as fh_:
+        reg = json.load(fh_)
+    gate(reg == {cfg["dataset"]: {cfg["models"][m]: {cfg["io_key"]: [e]} for m, e in cfg["exps"].items()}},
+         f"figures: the registry holds {reg}")
+    strip = os.path.join(out, "strip.png")
+    clip_dirs = [os.path.join(results, cfg["dataset"], "images", e, shown[0]) for e in exps]
+    run_tool("paper_figures_images", (), lambda: paper_cli.main(["images", "--clip_dirs", *clip_dirs, "--output",
+                                                                 strip]), found, seconds)
+    seq = [("gt_preceding", t) for t in range(K)] + [("pred_middle", t) for t in range(K, K + T)] + [
+        ("gt_following", t) for t in range(K + T, n)]
+    want = np.concatenate([np.concatenate([_rgb(read_png(os.path.join(d, f"{p}_{t:04d}.png"))) for p, t in seq], 1)
+                           for d in clip_dirs], 0)
+    got = np.asarray(Image.open(strip))
+    frames["out/strip.png"] = list(got.shape)
+    gate(got.shape == (len(exps) * hw, n * hw, 3) and np.array_equal(got, want),
+         f"figures: the image strip {got.shape} is not its source PNGs {want.shape} pixel for pixel")
+
+    written = {}
+    for name, fn, files in (
+            ("compare_intermediate_preds_bidirectional", lambda: intermediate_cli.main(
+                ["--results_root", results, "--dataset_name", cfg["dataset"], "--clip_names", shown[0],
+                 "--exp_names", *exps, "--ts", *map(str, range(K, K + T)), "--dest_path",
+                 os.path.join(out, "bidirectional"), "bidirectional_pred"]),
+             [os.path.join("bidirectional", shown[0], f"{t:02d}.pdf") for t in range(K, K + T)]),
+            ("compare_intermediate_preds_interp_net", lambda: intermediate_cli.main(
+                ["--results_root", results, "--dataset_name", cfg["dataset"], "--clip_names", shown[0],
+                 "--exp_names", *exps, "--ts", *map(str, range(K, K + T)), "--dest_path",
+                 os.path.join(out, "interp_net"), "interp_net_pred"]),
+             [os.path.join("interp_net", shown[0], f"{t:02d}.pdf") for t in range(K, K + T)]),
+            ("compare_visual_results_pdf", lambda: visual_cli.main(
+                visual[:-2] + ["--frame_indexes", *map(str, cfg["frame_indexes"]), "--dest_path",
+                               os.path.join(out, "pdf")]),
+             [os.path.join("pdf", f"{clip}.pdf") for clip in shown]),
+            ("paper_figures_plot", lambda: paper_cli.main(
+                ["plot", "--registry", registry, "--results_dir", results, "--output_dir", os.path.join(out, "plots"),
+                 "--dataset", cfg["dataset"], "--models", *cfg["models"].values(), "--io_key", cfg["io_key"]]),
+             [os.path.join("plots", f"{cfg['dataset']}_{cfg['io_key']}_{m}.pdf") for m in ("psnr", "ssim")]),
+            ("generate_unified_boxplot_fig", lambda: boxplot_cli.main(
+                ["--results_root", results, "--dest_path", os.path.join(out, "boxplot.pdf"), "--dataset",
+                 cfg["dataset"], "--T_a", str(T), "--T_b", str(T), "--exp_names", *exps, "--model_labels",
+                 *cfg["models"].values(), "--psnr_range", "0", "100", "--ssim_range", "0", "1"]),
+             ["boxplot.pdf"])):
+        if run_tool(name, ("matplotlib",), fn, found, seconds):
+            for f in files:
+                size = os.path.getsize(os.path.join(out, f)) if os.path.isfile(os.path.join(out, f)) else 0
+                written[f] = size
+                gate(size > 0, f"figures: {name} did not write {f}")
+    seconds["phase_s"] = time.perf_counter() - t_phase
+    emit("figures", nvidia_smi=card, host_packages=found, outputs=frames, pdfs=written, **seconds)
+    print("figures seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()), flush=True)
     return paths
 
 
@@ -2936,8 +3229,125 @@ def phase_timing_zoo(gen, vgg: str) -> None:
             torch.cuda.empty_cache()
 
 
+# int8 serving of the zoo through the predict CLI (--quantize int8 and
+# int8_dynamic; bf16 --device_normalize): SloMo_color at its golden
+# configuration and SCT Forward at KTH's, each from a snapshot of
+# random_jax_params(key, 0); timed at PERF.md's serving batches.
+ZOO_INT8 = {
+    "slomo": dict(model_key=SLOMO_GOLDEN["model_key"], **{k: SLOMO_GOLDEN[k] for k in ("K", "T", "F", "H", "W", "C")},
+                  clip_seed=50, clips=4, batch=4, time_batch=16),
+    "sct": dict(model_key=SCT_GOLDEN_RUNS["forward"], **{k: SCT_GOLDEN[k] for k in ("K", "T", "F", "H", "W", "C")},
+                clip_seed=51, clips=4, batch=4, time_batch=8),
+}
+
+
+@contextlib.contextmanager
+def qconv_call_checks(plain: dict):
+    """Every ``QConv`` call made inside, held against its recomputation by
+    ``plain``'s functions (:func:`qconv_plain`, after the call: a
+    calibrating call's updated amax): yields {"calls": n, "max_ulps": the worst |y -
+    plain| in ulps of the output's dtype}."""
+    forward = quant.QConv.forward
+    rec = {"calls": 0, "max_ulps": 0.0}
+
+    def checked(self, x):
+        y = forward(self, x)
+        want = qconv_plain(self, x, plain).float()
+        ulp = bf16_ulp(want) if x.dtype == torch.bfloat16 else f32_ulp(want)
+        rec["calls"] += 1
+        rec["max_ulps"] = max(rec["max_ulps"], float(((y.float() - want).abs() / ulp).max()))
+        return y
+
+    quant.QConv.forward = checked
+    try:
+        yield rec
+    finally:
+        quant.QConv.forward = forward
+
+
+def phase_zoo_int8(root: str, gen) -> dict:
+    """SloMo_color (256x320, K=F=4, T=5) and SCT Forward (gray 128x128,
+    K=T=F=5) served by ``cli.predict`` from a snapshot of seeded full-width
+    weights, bf16 ``--device_normalize`` at B=4 on 4 synthetic clips, under
+    ``--quantize int8`` (calibrated on those clips) and ``int8_dynamic``,
+    with the default ``--validate_quant`` gate (4 clips against the float
+    model of the same weights in f32): every int8 conv call of calibration,
+    gate and loop equal to its plain recomputation (0 ulps), one
+    ``qconv_int8`` launch per call and the same count in every forward, no
+    plain call, no sepconv launch, every PNG written.  Then the int8 forwards
+    (static calibrated on the batch, dynamic) timed in turns with the float
+    bf16 forward at B=16 (SloMo) and B=8 (SCT).  Returns each run's launches."""
+    t_phase = time.perf_counter()
+    paths = {}
+    for name, c in ZOO_INT8.items():
+        K, T, F, H, W, C = (c[k] for k in ("K", "T", "F", "H", "W", "C"))
+        work = os.path.join(root, name)
+        videolist = make_videolist(os.path.join(work, "clips"), c["clips"], c["clip_seed"], n_frames=K + T + F,
+                                   hw=H, width=W)
+        params = params_from_jax(random_jax_params(c["model_key"], 0))
+        ckpt.write_payload(os.path.join(work, "ckpt", name), "model_best.ckpt",
+                           {"generator": params, "counters": {"updates": 0, "sum_avg_psnr_err": 0.0,
+                                                              "sum_avg_ssim_err": 0.0}})
+        for mode in ("int8", "int8_dynamic"):
+            qual = os.path.join(work, f"qual_{mode}")
+            stages = {}
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            with plain_calls() as (plain, originals), qconv_call_checks(originals) as rec, stage_launches(stages):
+                stats, stdout = run_predict([
+                    "--K", str(K), "--T", str(T), "--F", str(F), "--c_dim", str(C), "--image_size", str(H), str(W),
+                    "--batch_size", str(c["batch"]), "--dtype", "bfloat16", "--model_key", c["model_key"],
+                    "--name", name, "--checkpoints_dir", os.path.join(work, "ckpt"), "--test_video_list_path",
+                    videolist, "--qual_result_root", qual, "--device", "cuda", "--device_normalize",
+                    "--quantize", mode])
+            wall = time.perf_counter() - t0
+            path = f"zoo_int8_{name}_{mode}"
+            paths[path] = launches = _launch_counts()
+            per_forward = stages["gate"]["qconv_int8"]
+            forwards = -(-c["clips"] // c["batch"]) + (2 if mode == "int8" else 1)
+            pngs = _pngs(qual)
+            verdict = VALIDATE_LINE.search(stdout)
+            emit("zoo_int8", model=c["model_key"], quantize=mode, dtype="bfloat16", batch=c["batch"],
+                 shape=[H, W, C], K=K, T=T, F=F, calls=rec["calls"], calls_vs_plain_max_ulps=rec["max_ulps"],
+                 per_forward=per_forward, forwards=forwards, stage_launches=stages, plain_calls=plain,
+                 validate_psnr_f32_db=verdict and float(verdict[1]), validate_psnr_int8_db=verdict and float(verdict[2]),
+                 validate_agreement_db=verdict and float(verdict[3]), loop_s=stats["loop_s"], wall_s=wall, **launches)
+            gate(rec["calls"] > 0 and rec["max_ulps"] == 0.0,
+                 f"{path}: an int8 conv call {rec['max_ulps']} ulps off its plain recomputation ({rec['calls']} calls)")
+            gate(not any(plain.values()), f"{path}: a plain version ran: {plain}")
+            _gate_launches(path, launches, {"qconv_int8": rec["calls"]})
+            gate(rec["calls"] == per_forward * forwards and stages.get("calibration", {}).get("qconv_int8", 0) == (
+                per_forward if mode == "int8" else 0), f"{path}: {rec['calls']} calls, stages {stages}")
+            gate(verdict is not None and "REFUSED" not in stdout,
+                 f"{path}: no validate_quant line, or REFUSED: {[ln for ln in stdout.splitlines() if 'quant' in ln]}")
+            gate(len(pngs) == c["clips"] and all(len(v) == K + 2 * T + F for v in pngs.values()),
+                 f"{path} wrote {len(pngs)} folders of {sorted({len(v) for v in pngs.values()})} PNGs")
+            torch.cuda.empty_cache()
+
+        # The int8 forwards beside the float one, bf16, in turns.
+        B = c["time_batch"]
+        p = (torch.rand(B, K, H, W, C, device="cuda", generator=gen) * 2 - 1).bfloat16()
+        f = (torch.rand(B, F, H, W, C, device="cuda", generator=gen) * 2 - 1).bfloat16()
+        ips = {"float": VideoInpainter(c["model_key"], params, device="cuda", dtype=torch.bfloat16),
+               "static": int8_inpainter(c["model_key"], params, "2", torch.bfloat16),
+               "dynamic": int8_inpainter(c["model_key"], params, "1", torch.bfloat16)}
+        with uncounted():
+            with quant.calibrate(ips["static"].model), torch.inference_mode():
+                ips["static"].model(T, p, f)
+            times = _time_in_turns({mode: (lambda ip=ip: ip.forward(T, p, f)) for mode, ip in ips.items()})
+        for mode, (ms, mem) in times.items():
+            emit("timing_zoo_int8", model=c["model_key"], dtype="bfloat16", mode=mode, batch=B, shape=[H, W, C],
+                 ms_per_batch=ms, middle_frames_per_s=B * T / (ms / 1e3), max_memory_allocated_bytes=mem,
+                 vs_float=times["float"][0] / ms)
+        del ips, p, f
+        torch.cuda.empty_cache()
+    emit("zoo_int8_phase", wall_s=time.perf_counter() - t_phase)
+    return paths
+
+
 def run_zoo(root: str, gen) -> dict:
-    """Every zoo phase in ``root``; returns each path's launches (all 0)."""
+    """Every zoo phase in ``root``; returns each path's launches (all 0 but
+    ``zoo_int8``'s int8 conv launches)."""
     os.makedirs(root, exist_ok=True)
     vgg = random_vgg16_npz(os.path.join(root, "vgg16.npz"), SLOMO_TRAIN["vgg_seed"])
     paths = {"slomo_golden": phase_slomo_golden()}
@@ -2952,6 +3362,8 @@ def run_zoo(root: str, gen) -> dict:
     torch.cuda.empty_cache()
     sct_root = os.path.join(root, "sct_train")
     paths["sct_train_cli"] = phase_sct_train_cli(sct_root, _train_cli_lists(sct_root))
+    torch.cuda.empty_cache()
+    paths.update(phase_zoo_int8(os.path.join(root, "int8"), gen))
     torch.cuda.empty_cache()
     phase_timing_zoo(gen, vgg)
     return paths
@@ -3312,6 +3724,7 @@ def main(argv) -> int:
         phase_timing_predict(predict_root, videolist, warm)
         paths.update(phase_predict_int8(predict_root, videolist, len(schedule)))
         paths.update(phase_reference_import(predict_root, videolist, smi[0] if smi else ""))
+        paths.update(phase_figures(predict_root, videolist, len(schedule), smi[0] if smi else ""))
         torch.cuda.empty_cache()
         env, tstate, targets = phase_train_golden()
         phase_train_kernel_vs_plain(env, tstate, targets)

@@ -41,7 +41,11 @@ def test_the_scan_sees_the_port():
             "vfi_tpu_torch/train/slomo_env.py", "vfi_tpu_torch/parallel/mesh.py",
             "vfi_tpu_torch/utils/torch_import.py", "vfi_tpu_torch/cli/import_torch_checkpoint.py",
             "vfi_tpu_torch/models/optical_flow.py", "vfi_tpu_torch/eval/tables.py",
-            "vfi_tpu_torch/cli/summarize_quant_results.py"} <= names
+            "vfi_tpu_torch/cli/summarize_quant_results.py", "vfi_tpu_torch/utils/optional.py",
+            "vfi_tpu_torch/eval/animate.py", "vfi_tpu_torch/eval/figures.py", "vfi_tpu_torch/eval/records.py",
+            "vfi_tpu_torch/cli/animate_qual_results.py", "vfi_tpu_torch/cli/generate_comparison_videos.py",
+            "vfi_tpu_torch/cli/compare_visual_results.py", "vfi_tpu_torch/cli/compare_intermediate_preds.py",
+            "vfi_tpu_torch/cli/generate_unified_boxplot_fig.py", "vfi_tpu_torch/cli/paper_figures.py"} <= names
     assert len(names) > 25
     tree = ast.parse("import jax.numpy as jnp\nfrom vfi_tpu.ops import sepconv\nimportlib.import_module('optax')")
     assert set(_imported(tree)) == {"jax", "vfi_tpu", "optax"}
