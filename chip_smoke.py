@@ -136,6 +136,31 @@ Phases, one JSON line each:
                    adjoint per G update, ms per step (G and D updates apart)
                    and peak device memory.
  12. train_color — TAI_color 256x320 B=4 in bf16: the same counts and times.
+ 12a. train_dynamic — the dynamic-(K, T, F) step (``train/dynamic_env.py``,
+                   ``train_step_dynamic``) of TAI_gray at max K=T=F=5 and
+                   full width, bf16 B=8 and f32 B=2, against the static
+                   ``train_step`` from copies of one state at 10 triples (8
+                   draws of TAIEnvironment's ``sample_ktf`` from
+                   RandomState(0), (5, 5, 5) and (2, 1, 2)): terms within rel
+                   1e-3 (bf16) / 1e-4 (f32), but the bf16 D update's terms,
+                   which are bf16 numbers, within 2 bf16 ulps; the f32 generator within
+                   global-L2-relative 1e-4; every dynamic step launches 2
+                   banded forwards, 2 ``bwd_vh`` and 2 ``bwd_x`` and nothing
+                   else.  At (3, 2, 4): the G gradient of ``_g_loss_dyn``
+                   through the adjoint kernels against the plain adjoints
+                   (f32, 1e-4), and every kernel launch of the step again on
+                   its recorded padded operands against its plain version
+                   (f32 1e-4 * max(1, max|plain|); bf16 one ulp of the plain
+                   version on the operands' magnitudes).  Two warmed-up
+                   dynamic steps at different triples, lengths on the card,
+                   under ``torch.cuda.set_sync_debug_mode("error")``.  The
+                   static and the dynamic bf16 step timed in turns at the
+                   10 triples (CUDA events, 3 warm-ups): median, spread, mean
+                   T, peak memory, each beside ``train``'s fixed 5/5/5 step.
+                   Then one dynamic step of SCT Forward (KTH, both
+                   teacher-forcing branches) and SloMo_color (160x192, seeded
+                   VGG16), bf16 B=8, against the static step at one sampled
+                   triple (the same gates) with no sepconv launch.
  13. train_cli   — TAI_gray at the KTH configuration (the KTH argfiles, their
                    videolists replaced by synthetic .npy clips: 64 training
                    clips of 15 frames, 16 for each validation set at 15, 20
@@ -279,6 +304,7 @@ from vfi_tpu_torch.nn.vgg import random_vgg16_npz
 from vfi_tpu_torch.ops import _kernels
 from vfi_tpu_torch.ops import qconv as qconv_ops
 from vfi_tpu_torch.ops import sepconv as sepconv_ops
+from vfi_tpu_torch.train.dynamic_env import create_dynamic_environment
 from vfi_tpu_torch.train.environments import L2GDLDiscEnvironment, create_training_environment
 from vfi_tpu_torch.utils import checkpoint as ckpt
 from vfi_tpu_torch.utils.config import TrainConfig
@@ -2089,11 +2115,11 @@ def phase_train_golden():
     return env, state, targets
 
 
-def phase_train_kernel_vs_plain(env, state, targets) -> None:
-    """The G gradient on the path through the adjoint kernels against the same
-    gradient with the plain adjoints put in their place (for this check only)."""
-    K, T, F = TRAIN_GOLDEN["K"], TRAIN_GOLDEN["T"], TRAIN_GOLDEN["F"]
-    params = list(state.generator.parameters())
+def adjoints_vs_plain(loss_fn, params) -> float:
+    """The gradient of ``loss_fn()`` through the adjoint kernels against the
+    same gradient with the plain adjoints put in their place (for this check
+    only): 4 adjoint launches on the kernels' route, none on the plain one;
+    returns the global-L2-relative difference."""
     grads = {}
     kernels = (sepconv_ops.sepconv_bwd_vh_cuda, sepconv_ops.sepconv_bwd_x_cuda)
     for route in ("kernels", "plain"):
@@ -2102,15 +2128,20 @@ def phase_train_kernel_vs_plain(env, state, targets) -> None:
             sepconv_ops.sepconv_bwd_vh_cuda = sepconv_ops.sepconv_bwd_vh_plain
             sepconv_ops.sepconv_bwd_x_cuda = sepconv_ops.sepconv_bwd_x_plain
         try:
-            loss, _ = env._g_loss(state, K, T, F, targets)
-            grads[route] = torch.autograd.grad(loss, params, allow_unused=True)
+            grads[route] = torch.autograd.grad(loss_fn(), params, allow_unused=True)
         finally:
             sepconv_ops.sepconv_bwd_vh_cuda, sepconv_ops.sepconv_bwd_x_cuda = kernels
         after = _launch_counts()
         adjoint_launches = sum(after[k] - before[k] for k in ("sepconv_bwd_vh", "sepconv_bwd_x"))
         gate(adjoint_launches == (4 if route == "kernels" else 0),
              f"{route} route launched the adjoint kernels {adjoint_launches} times")
-    err = _grads_rel(grads["kernels"], grads["plain"])
+    return _grads_rel(grads["kernels"], grads["plain"])
+
+
+def phase_train_kernel_vs_plain(env, state, targets) -> None:
+    """The G gradient on the path through the adjoint kernels against the plain adjoints."""
+    K, T, F = TRAIN_GOLDEN["K"], TRAIN_GOLDEN["T"], TRAIN_GOLDEN["F"]
+    err = adjoints_vs_plain(lambda: env._g_loss(state, K, T, F, targets)[0], list(state.generator.parameters()))
     emit("train_kernel_vs_plain", dtype="float32", batch=TRAIN_GOLDEN["B"], g_grad_global_rel=err)
     gate(err <= 1e-4, f"G gradient through the kernels off the plain adjoints by {err} > 1e-4")
 
@@ -2221,6 +2252,295 @@ def phase_train_color(gen) -> dict:
     emit("train_color_launches", model="TAI_color", g_updates=n_g_updates, **launches)
     _gate_launches("train_color", launches, _expect_train(n_g_updates))
     return launches
+
+
+# The train_dynamic phase: TAI_gray's dynamic-(K, T, F) step
+# (train/dynamic_env.py) against its static step at sampled lengths, on
+# copies of one state: 8 draws of TAIEnvironment.sample_ktf from
+# RandomState(0) and two fixed triples; the kernels against their plain
+# versions on the step's padded operands at KERNEL_KTF (all below the maximum).
+TRAIN_DYNAMIC = dict(model_key="TAI_gray", param_seed=0, K=5, T=5, F=5, H=128, W=128, draws=8, draw_seed=0,
+                     extra=((5, 5, 5), (2, 1, 2)), kernel_ktf=(3, 2, 4), warmup=3, runs=(("bfloat16", 8, 1e-3),
+                                                                                          ("float32", 2, 1e-4)))
+# One dynamic step of each of the zoo's trained families at one sampled triple.
+DYNAMIC_ZOO = (("sct_forced", "SCTSkipConScaledTForward_gray", dict(K=5, T=5, F=5, tf_p_min=1.0, tf_p_max=1.0),
+                (128, 128, 1)),
+               ("sct_free", "SCTSkipConScaledTForward_gray", dict(K=5, T=5, F=5, tf_p_min=0.0, tf_p_max=0.0),
+                (128, 128, 1)),
+               ("slomo", "SloMoFillInModel_color", dict(K=4, T=3, F=4), (160, 192, 3)))
+DYNAMIC_KERNELS = ("sepconv_fwd_mxu", "sepconv_bwd_vh", "sepconv_bwd_x")
+
+
+def dynamic_triples(env) -> list:
+    """``TRAIN_DYNAMIC``'s draws of ``env.sample_ktf`` and its two fixed triples."""
+    rng = np.random.RandomState(TRAIN_DYNAMIC["draw_seed"])
+    draws = [tuple(int(v) for v in env.sample_ktf(rng, True)) for _ in range(TRAIN_DYNAMIC["draws"])]
+    return draws + list(TRAIN_DYNAMIC["extra"])
+
+
+# The D update's cross-entropies run in its compute dtype (as vfi_tpu's do):
+# under bf16 these terms are bf16 numbers, 2**-8 apart relatively, which a
+# relative gate of 1e-3 cannot resolve; they are held in bf16 ulps instead.
+BF16_D_TERMS = ("D_fake", "D_real")
+
+
+def terms_against(got: dict, want: dict, tol: float, dtype: str) -> dict:
+    """The dynamic step's terms against the static step's: the largest
+    relative difference and its term, each bf16 D term's difference in bf16
+    ulps of the static term, and the terms outside the gate (relative
+    ``tol``; under bf16 a D term more than 2 ulps off: the static mean is
+    rounded to bf16 once, the masked mean's sum and quotient once each)."""
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    rels, ulps, outside = {}, {}, []
+    for k in want:
+        diff, w = abs(float(got[k]) - float(want[k])), float(want[k])
+        rels[k] = diff / max(abs(w), 1e-12)
+        if dtype == "bfloat16" and k in BF16_D_TERMS:
+            ulps[k] = diff / float(bf16_ulp(torch.tensor(w)))
+            if ulps[k] > 2.0:
+                outside.append(k)
+        elif rels[k] > tol:
+            outside.append(k)
+    worst = max(rels, key=rels.get)
+    return {"terms_max_rel": rels[worst], "worst_term": worst, "d_terms_bf16_ulps": ulps, "outside": outside}
+
+
+def static_and_dynamic(env_s, env_d, base, targets, ktf) -> tuple:
+    """The static step on the first K+T+F frames (uncounted) and the dynamic
+    step on the whole clip, each from a copy of ``base``: (static terms,
+    dynamic terms, static state, dynamic state, the dynamic step's launches)."""
+    K, T, F = ktf
+    s_state, d_state = copy.deepcopy(base), copy.deepcopy(base)
+    with uncounted():
+        s_state, s_terms = env_s.train_step(s_state, K, T, F, targets[:, : K + T + F])
+    before = _launch_counts()
+    d_state, d_terms = env_d.train_step_dynamic(d_state, targets, torch.tensor(ktf, device="cuda"))
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    return s_terms, d_terms, s_state, d_state, {k: after[k] - before[k] for k in after}
+
+
+@contextlib.contextmanager
+def recorded_operands():
+    """Clones of the operands of every launch of the three training kernels
+    inside, by kernel (the launches run as they would)."""
+    calls = {k: [] for k in DYNAMIC_KERNELS}
+    originals = {k: getattr(sepconv_ops, f"{k}_cuda") for k in DYNAMIC_KERNELS}
+
+    def recording(name):
+        def launch(*args):
+            calls[name].append([a.clone() for a in args])
+            return originals[name](*args)
+        return launch
+
+    for k in DYNAMIC_KERNELS:
+        setattr(sepconv_ops, f"{k}_cuda", recording(k))
+    try:
+        yield calls
+    finally:
+        for k, fn in originals.items():
+            setattr(sepconv_ops, f"{k}_cuda", fn)
+
+
+def kernels_on_operands(calls: dict) -> dict:
+    """Each recorded launch again (uncounted) against the plain version on
+    the same operands widened to f32: f32 within 1e-4 * max(1, max|plain|);
+    bf16 within one bf16 ulp of the plain version of |operands| (the sum of
+    magnitudes that bounds the f32 accumulation; where nothing cancels it is
+    |plain|, the kernel phase's gate).  Returns the worst error per kernel."""
+    plain = {"sepconv_fwd_mxu": lambda a: (sepconv_ops.sepconv_banded(*a),),
+             "sepconv_bwd_vh": lambda a: sepconv_ops.sepconv_bwd_vh_plain(*a),
+             "sepconv_bwd_x": lambda a: (sepconv_ops.sepconv_bwd_x_plain(*a),)}
+    report = {}
+    with uncounted():
+        for name, launches in calls.items():
+            gate(len(launches) == 2, f"train_dynamic: {name} launched {len(launches)} times in the recorded step")
+            worst = 0.0
+            for args in launches:
+                got = getattr(sepconv_ops, f"{name}_cuda")(*args)
+                got = got if isinstance(got, tuple) else (got,)
+                wide = [a.float() for a in args]
+                want = plain[name](wide)
+                mag = plain[name]([a.abs() for a in wide])
+                for g_, w_, m_ in zip(got, want, mag):
+                    diff = (g_.float() - w_).abs()
+                    if args[0].dtype == torch.float32:
+                        err = float(diff.max())
+                        gate(err <= 1e-4 * max(1.0, float(w_.abs().max())),
+                             f"train_dynamic: {name} f32 {err} off its plain version on the step's operands")
+                    else:
+                        err = float((diff / bf16_ulp(m_)).max())
+                        gate(err <= 1.0, f"train_dynamic: {name} bf16 {err} ulps off its plain version")
+                    worst = max(worst, err)
+            report[name] = {"shape": list(launches[0][0].shape), "dtype": str(launches[0][0].dtype),
+                            ("max_abs" if launches[0][0].dtype == torch.float32 else "max_ulps"): worst}
+            del launches[:]
+            torch.cuda.empty_cache()
+    return report
+
+
+def _event_ms(fn) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _spread(ms: list) -> dict:
+    s = sorted(ms)
+    return {"median": s[len(s) // 2] if len(s) % 2 else (s[len(s) // 2 - 1] + s[len(s) // 2]) / 2,
+            "min": s[0], "max": s[-1]}
+
+
+def phase_train_dynamic(gen, train_ms: float, vgg: str) -> dict:
+    """TAI_gray's ``train_step_dynamic`` (max K = T = F = 5, full width) at
+    bf16 B=8 and f32 B=2 against the static ``train_step`` on copies of one
+    state at each of ``dynamic_triples``: terms within rel 1e-3 / 1e-4 (the
+    bf16 D terms within 2 bf16 ulps, ``terms_against``), the f32 generator within global-L2-relative 1e-4, 2 banded and 2 + 2 adjoint
+    launches per dynamic step and nothing else.  At ``kernel_ktf``: the G
+    gradient of ``_g_loss_dyn`` through the adjoint kernels against the plain
+    adjoints (f32, 1e-4), and each kernel against its plain version on the
+    bf16 and f32 steps' own padded operands.  Two warmed-up dynamic steps at
+    different triples under ``torch.cuda.set_sync_debug_mode("error")``.
+    Times (CUDA events, bf16 B=8) of the static and the dynamic step at the
+    same triples in turns, beside ``train``'s fixed 5/5/5 step.  Then one
+    dynamic step of SCT Forward (KTH, bf16 B=8, both teacher-forcing
+    branches) and SloMo_color (160x192, bf16 B=8, seeded VGG16) against the
+    static step at one sampled triple (``terms_against``, rel 1e-3), with no
+    sepconv launch.
+    Returns the launches of the dynamic steps."""
+    c = TRAIN_DYNAMIC
+    H, W = c["H"], c["W"]
+    g_params = random_jax_params(c["model_key"], c["param_seed"])
+    _reset_launch_counts()
+    n_steps = 0
+    want = {k: 2 for k in DYNAMIC_KERNELS}
+    timing = None
+    for dtype, B, tol in c["runs"]:
+        cfg = TrainConfig(K=c["K"], T=c["T"], F=c["F"], train_dtype=dtype)
+        model = create_model(c["model_key"])
+        env_s, env_d = create_training_environment(model, cfg), create_dynamic_environment(model, cfg)
+        triples = dynamic_triples(env_s)
+        base = env_s.init_state((H, W), g_params=g_params, device="cuda", seed=1)
+        targets = torch.rand(B, c["K"] + c["T"] + c["F"], H, W, 1, device="cuda", generator=gen) * 2 - 1
+        rows = []
+        for ktf in triples:
+            s_terms, d_terms, s_state, d_state, launches = static_and_dynamic(env_s, env_d, base, targets, ktf)
+            n_steps += 1
+            row = {"ktf": list(ktf), **terms_against(d_terms, s_terms, tol, dtype),
+                   "launches": {k: n for k, n in launches.items() if n}}
+            if dtype == "float32":
+                row["g_params_global_rel"] = _grads_rel(list(d_state.generator.parameters()),
+                                                        list(s_state.generator.parameters()))
+            rows.append(row)
+            del s_state, d_state
+            gate(launches == {k: want.get(k, 0) for k in launches},
+                 f"train_dynamic {dtype} {ktf}: the dynamic step launched {launches}, want {want}")
+            gate(not row["outside"], f"train_dynamic {dtype} {ktf}: {row['outside']} off the static step: {row}")
+            gate(row.get("g_params_global_rel", 0.0) <= 1e-4,
+                 f"train_dynamic f32 {ktf}: generator off the static step's by {row.get('g_params_global_rel')}")
+        emit("train_dynamic", model=c["model_key"], dtype=dtype, batch=B, max_ktf=[c["K"], c["T"], c["F"]],
+             tf32=False, rows=rows, terms_max_rel=max(r["terms_max_rel"] for r in rows),
+             g_params_global_rel=max((r.get("g_params_global_rel", 0.0) for r in rows)))
+
+        # The kernels against their plain versions on this step's padded operands.
+        K, T, F = (torch.tensor(v, device="cuda") for v in c["kernel_ktf"])
+        state = copy.deepcopy(base)
+        kernels = {}
+        if dtype == "float32":
+            with uncounted():
+                kernels["g_grad_global_rel"] = adjoints_vs_plain(
+                    lambda: env_d._g_loss_dyn(state, K, T, F, targets)[0], list(state.generator.parameters()))
+            gate(kernels["g_grad_global_rel"] <= 1e-4, "train_dynamic: the dynamic G gradient through the adjoint "
+                 f"kernels off the plain adjoints by {kernels['g_grad_global_rel']}")
+        with recorded_operands() as calls:
+            env_d.train_step_dynamic(state, targets, torch.tensor(c["kernel_ktf"], device="cuda"))
+            n_steps += 1
+        kernels.update(kernels_on_operands(calls))
+        emit("train_dynamic_kernels", dtype=dtype, batch=B, ktf=list(c["kernel_ktf"]), **kernels)
+
+        # No host read: two warmed-up steps at other lengths, the lengths already on the card.
+        ktfs = [torch.tensor(t, device="cuda") for t in (c["kernel_ktf"], triples[0])]
+        env_d.train_step_dynamic(state, targets, ktfs[1])
+        n_steps += 1
+        torch.cuda.synchronize()
+        sync_error = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for ktf in ktfs:
+                env_d.train_step_dynamic(state, targets, ktf)
+                n_steps += 1
+        except RuntimeError as e:
+            sync_error = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        emit("train_dynamic_sync", dtype=dtype, ktfs=[c["kernel_ktf"], list(triples[0])], sync_error=sync_error)
+        gate(sync_error is None, f"train_dynamic {dtype}: a synchronising call inside the dynamic step: {sync_error}")
+        del state
+
+        if dtype == "bfloat16":  # the time of each step at the same triples, in turns
+            s_state, d_state = copy.deepcopy(base), copy.deepcopy(base)
+            ktfs = [torch.tensor(t, device="cuda") for t in triples]
+            for i in range(c["warmup"]):
+                K_, T_, F_ = triples[i]
+                with uncounted():
+                    env_s.train_step(s_state, K_, T_, F_, targets[:, : K_ + T_ + F_])
+                env_d.train_step_dynamic(d_state, targets, ktfs[i])
+                n_steps += 1
+            static_ms, dynamic_ms, peak = [], [], {"static": 0, "dynamic": 0}
+
+            def timed(kind, fn):  # ms of one step; its peak memory above what was allocated before it
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated()
+                ms = _event_ms(fn)
+                peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated() - start)
+                return ms
+
+            for (K_, T_, F_), ktf in zip(triples, ktfs):
+                with uncounted():
+                    static_ms.append(timed("static", lambda: env_s.train_step(s_state, K_, T_, F_,
+                                                                              targets[:, : K_ + T_ + F_])))
+                dynamic_ms.append(timed("dynamic", lambda: env_d.train_step_dynamic(d_state, targets, ktf)))
+                n_steps += 1
+            st, dy = _spread(static_ms), _spread(dynamic_ms)
+            timing = dict(static_ms=static_ms, dynamic_ms=dynamic_ms, static=st, dynamic=dy,
+                          mean_T=sum(t[1] for t in triples) / len(triples), train_fixed_555_ms=train_ms,
+                          dynamic_over_fixed=dy["median"] / train_ms, static_over_fixed=st["median"] / train_ms,
+                          dynamic_over_static=dy["median"] / st["median"],
+                          static_step_peak_bytes=peak["static"], dynamic_step_peak_bytes=peak["dynamic"],
+                          resident_bytes=torch.cuda.memory_allocated())
+            emit("timing_train_dynamic", model=c["model_key"], dtype=dtype, batch=B, triples=[list(t) for t in triples],
+                 **timing)
+            del s_state, d_state
+        del env_s, env_d, base, targets, model
+        torch.cuda.empty_cache()
+
+    path_launches = _launch_counts()
+    emit("train_dynamic_launches", model=c["model_key"], dynamic_steps=n_steps, **path_launches)
+    _gate_launches("train_dynamic", path_launches, {k: 2 * n_steps for k in DYNAMIC_KERNELS})
+
+    # The zoo's dynamic steps: no sepconv.
+    for name, key, cfg_kw, (H, W, C) in DYNAMIC_ZOO:
+        _reset_launch_counts()
+        cfg = TrainConfig(**cfg_kw, train_dtype="bfloat16", vgg16_weights=vgg if "SloMo" in key else None)
+        model = create_model(key)
+        env_s, env_d = create_training_environment(model, cfg), create_dynamic_environment(model, cfg)
+        ktf = tuple(int(v) for v in env_s.sample_ktf(np.random.RandomState(1), True))
+        for env in (env_d, env_s):  # each environment moves its own frozen VGG16 to the card
+            base = env.init_state((H, W), g_params=random_jax_params(key, 0), device="cuda", seed=1)
+        targets = torch.rand(8, cfg.K + cfg.T + cfg.F, H, W, C, device="cuda", generator=gen) * 2 - 1
+        s_terms, d_terms, _, _, _ = static_and_dynamic(env_s, env_d, base, targets, ktf)
+        report = terms_against(d_terms, s_terms, 1e-3, "bfloat16")
+        launches = _zoo_launches(f"train_dynamic_{name}")
+        emit("train_dynamic_zoo", run=name, model=key, dtype="bfloat16", batch=8, shape=[H, W, C], ktf=list(ktf),
+             **report, dynamic_terms={k: float(v) for k, v in d_terms.items()}, launches=launches)
+        gate(not report["outside"], f"train_dynamic_{name} {ktf}: {report['outside']} off the static step: {report}")
+        del env_s, env_d, base, targets, model
+        torch.cuda.empty_cache()
+    return path_launches
 
 
 # The train_cli phase: TAI_gray at the KTH configuration (exp_args/*/KTH) through
@@ -3734,6 +4054,9 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         paths["train"], train_ms = phase_train(gen)
         paths["train_color"] = phase_train_color(gen)
+        os.makedirs(train_cli_root, exist_ok=True)
+        vgg = random_vgg16_npz(os.path.join(train_cli_root, "vgg16.npz"), SLOMO_TRAIN["vgg_seed"])
+        paths["train_dynamic"] = phase_train_dynamic(gen, train_ms, vgg)
         lists = _train_cli_lists(train_cli_root)
         paths.update(phase_train_cli(train_cli_root, lists))
         phase_timing_train_cli(train_cli_root, lists, train_ms)

@@ -12,9 +12,12 @@ vfi_tpu's.  Where it differs:
     ``--train_dtype float32`` turns TF32 off for matmuls and cuDNN; ``main``
     puts both settings back as it found them when it returns or raises.
   * ``--sample_KTF`` runs the static step at each sampled (K, T, F) on the
-    batch's first K+T+F frames.  vfi_tpu pads every step to the largest
-    lengths only so that XLA compiles one program; its padded step equals
-    the static one.
+    batch's first K+T+F frames.  vfi_tpu runs its padded step there, so that
+    XLA compiles one program; the port has that step too
+    (``train/dynamic_env.py``, ``train_step_dynamic``), equal to the static
+    one, but eager PyTorch does the largest lengths' work at every iteration:
+    about 1.3x the static step's time at the sampled lengths on an H100
+    (``chip_smoke.py``'s ``train_dynamic``; ``PERF.md``).
   * Python's ``random`` (the training set's crops and flips) is seeded from
     ``--seed`` before the prefetch thread starts; vfi_tpu seeds it after its
     thread has drawn the first batches, so those race.

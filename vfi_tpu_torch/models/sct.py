@@ -25,8 +25,16 @@ The random-order variants take an explicit CPU ``torch.Generator``
 (``generator=``); without one they draw from a generator seeded 0 at each
 call, so serving is deterministic per call, as vfi_tpu's fixed
 ``PRNGKey(0)`` makes it; the permutations are not vfi_tpu's.  All draws go
-through :func:`_draw_orders`.  vfi_tpu's dynamic ``lengths`` argument is not
-ported (the port's ``--sample_KTF`` runs the static step at each length).
+through :func:`_draw_uniforms`.
+
+The 8 variants take vfi_tpu's dynamic ``lengths`` (K, T, F) on pad-to-max
+buffers (``ops/dynamic.py``; ``T`` is then max_T): the padded context is
+masked out of the encoder with its times zeroed, the generation times use
+the sampled T, and steps at or after it (padding) generate after every
+valid step and sort last; a random order is a uniform order of the valid
+steps, uniforms over them ranked by a double argsort.  The outputs at
+t < T equal the static forward's at those lengths (Random and RandomB given
+the same order).
 """
 
 from __future__ import annotations
@@ -39,17 +47,36 @@ import torch.nn.functional as F
 
 from ..nn.layers import Conv
 from ..nn.transformer import ConvTransformerDecoder, ConvTransformerEncoder
+from ..ops.dynamic import as_lengths
 
 GN_EPS = 1e-6
 
 
-def _draw_orders(B: int, T: int, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``B`` uniform permutations of ``range(T)`` ``[B, T]`` (int64, CPU): row
-    b's step s generates the frame at time ``perm[b, s]``.  Without a
-    generator, from one seeded 0."""
+def _draw_uniforms(B: int, T: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Uniforms ``[B, T]`` (float32, CPU) from ``generator``, or from one seeded 0."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return torch.rand(B, T, generator=generator).argsort(dim=1)
+    return torch.rand(B, T, generator=generator)
+
+
+def _draw_orders(B: int, T: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``B`` uniform permutations of ``range(T)`` ``[B, T]`` (int64, CPU): row
+    b's step s generates the frame at time ``perm[b, s]``."""
+    return _draw_uniforms(B, T, generator).argsort(dim=1)
+
+
+def _ranked_times(u: torch.Tensor, T_len: torch.Tensor):
+    """A uniform order of the ``T_len`` valid steps of ``T`` from uniforms
+    ``u`` ``[B, T]``: each valid step's rank among the valid steps' uniforms
+    (a double argsort; the padded steps rank last).  Returns (the steps'
+    generation times ``[B, T]``, 1 + rank / T_len, and 1e6 + s at a padded
+    step s, which sorts after every valid one; the times before that
+    replacement; the steps' validity ``[T]``)."""
+    s = torch.arange(u.shape[1], device=u.device)
+    valid = s < T_len
+    ranks = torch.where(valid, u, torch.inf).argsort(dim=1).argsort(dim=1)
+    base = ranks.float() / T_len.float() + 1.0
+    return torch.where(valid, base, 1e6 + s.float()), base, valid
 
 
 def _seq(frames: torch.Tensor) -> torch.Tensor:
@@ -183,18 +210,37 @@ class BaseSCTFillInModel(nn.Module):
 
     # -- context encoding ------------------------------------------------------
     @staticmethod
-    def _context_times(B: int, K: int, F: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """Scaled time steps of the preceding and following frames, ``[B, K]`` and ``[B, F]``, float32."""
-        t_pre = torch.arange(K, dtype=torch.float32, device=device) / K
-        t_fol = torch.arange(F, dtype=torch.float32, device=device) / F + 2.0
-        return t_pre.expand(B, K), t_fol.expand(B, F)
+    def _lengths(lengths, T: int, preceding: torch.Tensor, following: torch.Tensor):
+        """``lengths`` as device tensors (None stays None), checked against the
+        buffers' sizes where on the host."""
+        if lengths is None:
+            return None
+        return as_lengths(lengths, preceding.device, (preceding.shape[1], T, following.shape[1]))
 
-    def _context(self, preceding: torch.Tensor, following: torch.Tensor):
+    @staticmethod
+    def _context_times(B: int, K: int, F: int, device, lengths=None):
+        """Scaled time steps of the preceding and following buffers, ``[B, K]``
+        and ``[B, F]``, and their validity, ``[K]`` and ``[F]`` (float32).
+        With ``lengths``, the right-aligned preceding and left-aligned
+        following frames are scaled by the sampled K and F, and the padding's
+        times are 0."""
+        iK = torch.arange(K, dtype=torch.float32, device=device)
+        iF = torch.arange(F, dtype=torch.float32, device=device)
+        if lengths is None:
+            mask_pre, mask_fol = torch.ones_like(iK), torch.ones_like(iF)
+            t_pre, t_fol = iK / K, iF / F + 2.0
+        else:
+            Kf, Ff = lengths[0].float(), lengths[2].float()
+            mask_pre, mask_fol = (iK >= K - Kf).float(), (iF < Ff).float()
+            t_pre, t_fol = (iK - (K - Kf)) / Kf * mask_pre, (iF / Ff + 2.0) * mask_fol
+        return t_pre.expand(B, K), t_fol.expand(B, F), mask_pre, mask_fol
+
+    def _context(self, preceding: torch.Tensor, following: torch.Tensor, lengths=None):
         """Encode the K+F context frames (sequences): (encoder output, its mask)."""
         B, K = preceding.shape[:2]
         F_ = following.shape[1]
-        t_pre, t_fol = self._context_times(B, K, F_, preceding.device)
-        enc_mask = preceding.new_ones((B, K + F_))
+        t_pre, t_fol, mask_pre, mask_fol = self._context_times(B, K, F_, preceding.device, lengths)
+        enc_mask = torch.cat([mask_pre, mask_fol]).to(preceding.dtype).expand(B, K + F_)
         reps = self.encode_frames(torch.cat([preceding, following], dim=1))
         return self.encoder(reps[-1], enc_mask, torch.cat([t_pre, t_fol], dim=1)), enc_mask
 
@@ -221,35 +267,46 @@ class BaseSCTFillInModel(nn.Module):
 class SCTSkipConScaledTForwardFillInModel(BaseSCTFillInModel):
     """Earliest-to-latest autoregressive generation; with ``gt_middle`` the
     teacher-forced pass, whose decoder inputs are the seed frame and the first
-    T-1 true middle frames."""
+    T-1 true middle frames (with ``lengths``, a left-aligned max_T buffer).
+    Under the causal mask a valid step never attends a padded one."""
 
-    def _dec_times(self, T: int, B: int, device) -> torch.Tensor:
-        return (torch.arange(T, dtype=torch.float32, device=device) / T + 1.0).expand(B, T)
+    def _dec_times(self, T: int, B: int, device, lengths=None) -> torch.Tensor:
+        T_len = T if lengths is None else lengths[1].float()
+        return (torch.arange(T, dtype=torch.float32, device=device) / T_len + 1.0).expand(B, T)
 
-    def forward(self, T: int, preceding, following, gt_middle=None) -> Dict[str, torch.Tensor]:
+    def forward(self, T: int, preceding, following, gt_middle=None, lengths=None) -> Dict[str, torch.Tensor]:
         p, f = _seq(preceding), _seq(following)
         B = p.shape[0]
-        enc_out, enc_mask = self._context(p, f)
+        lengths = self._lengths(lengths, T, p, f)
+        enc_out, enc_mask = self._context(p, f, lengths)
         dec_in = None
         if gt_middle is not None:
             dec_in = torch.cat([p[:, -1:], _seq(gt_middle)[:, : T - 1]], dim=1)
-        pred = self._decode_with_times(T, p, enc_out, enc_mask, self._dec_times(T, B, p.device), dec_in)
+        dec_times = self._dec_times(T, B, p.device, lengths)
+        pred = self._decode_with_times(T, p, enc_out, enc_mask, dec_times, dec_in)
         return {"pred": _video(pred)}
 
-    def forward_train(self, T: int, preceding, following, gt_middle) -> Dict[str, torch.Tensor]:
-        return self(T, preceding, following, gt_middle=gt_middle)
+    def forward_train(self, T: int, preceding, following, gt_middle, lengths=None) -> Dict[str, torch.Tensor]:
+        return self(T, preceding, following, gt_middle=gt_middle, lengths=lengths)
 
 
 class SCTSkipConScaledTInwardFillInModel(BaseSCTFillInModel):
     """Ends-inward generation order: first, last, second, second-to-last, ..."""
 
-    def forward(self, T: int, preceding, following) -> Dict[str, torch.Tensor]:
+    def forward(self, T: int, preceding, following, lengths=None) -> Dict[str, torch.Tensor]:
+        """With ``lengths``, the order is the closed form at the sampled T
+        (even s -> s/2, odd s -> T-(s+1)/2), and padded steps come last."""
         p, f = _seq(preceding), _seq(following)
         B = p.shape[0]
-        enc_out, enc_mask = self._context(p, f)
+        lengths = self._lengths(lengths, T, p, f)
+        enc_out, enc_mask = self._context(p, f, lengths)
         s = torch.arange(T, device=p.device)
-        order = torch.where(s % 2 == 0, s // 2, T - (s + 1) // 2).float()
-        dec_times = (order / T + 1.0).expand(B, T)
+        T_len = T if lengths is None else lengths[1]
+        order = torch.where(s % 2 == 0, s // 2, T_len - (s + 1) // 2).float()
+        dec_times = order / (T if lengths is None else T_len.float()) + 1.0
+        if lengths is not None:
+            dec_times = torch.where(s < T_len, dec_times, 1e6 + s.float())
+        dec_times = dec_times.expand(B, T)
         pred = self._decode_with_times(T, p, enc_out, enc_mask, dec_times)
         return {"pred": _video(self._resort(pred, dec_times))}
 
@@ -259,12 +316,15 @@ class SCTSkipConScaledTRandomFillInModel(BaseSCTFillInModel):
 
     random_order = True
 
-    def forward(self, T: int, preceding, following, generator=None) -> Dict[str, torch.Tensor]:
+    def forward(self, T: int, preceding, following, generator=None, lengths=None) -> Dict[str, torch.Tensor]:
         p, f = _seq(preceding), _seq(following)
         B = p.shape[0]
-        enc_out, enc_mask = self._context(p, f)
-        perms = _draw_orders(B, T, generator).to(p.device, non_blocking=True)
-        dec_times = perms.float() / T + 1.0
+        lengths = self._lengths(lengths, T, p, f)
+        enc_out, enc_mask = self._context(p, f, lengths)
+        if lengths is None:
+            dec_times = _draw_orders(B, T, generator).to(p.device, non_blocking=True).float() / T + 1.0
+        else:
+            dec_times = _ranked_times(_draw_uniforms(B, T, generator).to(p.device, non_blocking=True), lengths[1])[0]
         pred = self._decode_with_times(T, p, enc_out, enc_mask, dec_times)
         return {"pred": _video(self._resort(pred, dec_times))}
 
@@ -279,13 +339,22 @@ class SCTSkipConScaledTRandomBFillInModel(BaseSCTFillInModel):
         prod_mask = enc_mask.new_ones((dec_time.shape[0], 1, 1))
         return self.decode_frames(self.decoder(enc_out, enc_mask, dec_reps[-1], dec_time, prod_mask), dec_reps)
 
-    def forward(self, T: int, preceding, following, generator=None) -> Dict[str, torch.Tensor]:
+    def forward(self, T: int, preceding, following, generator=None, lengths=None) -> Dict[str, torch.Tensor]:
+        """With ``lengths``, a generated frame joins the encoder's input as
+        valid only if its step was valid (a padded one with time 0)."""
         p, f = _seq(preceding), _seq(following)
         B, K = p.shape[:2]
-        t_pre, t_fol = self._context_times(B, K, f.shape[1], p.device)
-        ctx_mask = p.new_ones((B, K + f.shape[1]))
+        lengths = self._lengths(lengths, T, p, f)
+        t_pre, t_fol, mask_pre, mask_fol = self._context_times(B, K, f.shape[1], p.device, lengths)
+        ctx_mask = torch.cat([mask_pre, mask_fol]).to(p.dtype).expand(B, -1)
         reps_p, reps_f = self.encode_frames(p), self.encode_frames(f)
-        step_times = _draw_orders(B, T, generator).to(p.device, non_blocking=True).float() / T + 1.0  # [B, T]
+        if lengths is None:
+            step_times = _draw_orders(B, T, generator).to(p.device, non_blocking=True).float() / T + 1.0  # [B, T]
+            mid_times, step_valid = step_times, p.new_ones(T)
+        else:
+            u = _draw_uniforms(B, T, generator).to(p.device, non_blocking=True)
+            step_times, base, valid = _ranked_times(u, lengths[1])
+            mid_times, step_valid = torch.where(valid, base, 0.0), valid.to(p.dtype)
 
         preds: List[torch.Tensor] = []
         mid_reps: List[torch.Tensor] = []
@@ -295,8 +364,8 @@ class SCTSkipConScaledTRandomBFillInModel(BaseSCTFillInModel):
                 dec_reps = self.encode_frames(preds[-1])
                 mid_reps.append(dec_reps[-1])
             enc_in = torch.cat([reps_p[-1], reps_f[-1], *mid_reps], dim=1)
-            enc_time = torch.cat([t_pre, t_fol, step_times[:, :t]], dim=1)
-            enc_mask = torch.cat([ctx_mask, ctx_mask.new_ones((B, t))], dim=1)
+            enc_time = torch.cat([t_pre, t_fol, mid_times[:, :t]], dim=1)
+            enc_mask = torch.cat([ctx_mask, step_valid[:t].expand(B, t)], dim=1)
             enc_out = self.encoder(enc_in, enc_mask, enc_time)
             preds.append(self._step_decode(enc_out, enc_mask, dec_reps, step_times[:, t : t + 1]))
         return {"pred": _video(self._resort(torch.cat(preds, dim=1), step_times))}

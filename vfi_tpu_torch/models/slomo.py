@@ -10,8 +10,10 @@ is in natural time order.  Outputs are channels-last like the inputs:
 ``pred`` ``[B, T, H, W, C]``, ``F_0_1`` / ``F_1_0`` ``[B, H, W, 2]`` and the
 synthesised flows ``F_t_0_collector`` / ``F_t_1_collector``
 ``[B, T, H, W, 2]``.  H and W must be multiples of 32 (five pools).
-vfi_tpu's dynamic ``lengths`` argument is not ported: the port's
-``--sample_KTF`` runs the static step at each sampled length.
+With vfi_tpu's dynamic ``lengths`` (K, T, F) on pad-to-max buffers
+(``ops/dynamic.py``), only the per-t time values change: the model reads
+the last preceding and the first following frame, which the padded layout
+keeps in place; frames at t >= the sampled T are padding.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..nn.layers import Conv
+from ..ops.dynamic import as_lengths, dynamic_time_weights
 from ..ops.image import time_weights, upsample2x_bilinear
 from ..ops.warp import MODES, flow_warp
 
@@ -100,7 +103,7 @@ class SloMoFillInModel(nn.Module):
         self.refine_enc = SloMoEncoder(4 * c_dim + 4, base_dim)
         self.refine_dec = SloMoDecoder(base_dim, 5)
 
-    def forward(self, T: int, preceding, following) -> Dict[str, torch.Tensor]:
+    def forward(self, T: int, preceding, following, lengths=None) -> Dict[str, torch.Tensor]:
         I0, I1 = _nchw(preceding[:, -1]), _nchw(following[:, 0])
         B = I0.shape[0]
 
@@ -108,7 +111,12 @@ class SloMoFillInModel(nn.Module):
         F_0_1, F_1_0 = flows[:, :2], flows[:, 2:]
 
         # The per-t flows, t folded into the batch (t-major).
-        t = time_weights(T, I0.dtype, I0.device)[:, None, None, None, None]  # [T, 1, 1, 1, 1]
+        if lengths is None:
+            t = time_weights(T, I0.dtype, I0.device)
+        else:
+            T_len = as_lengths(lengths, I0.device, (preceding.shape[1], T, following.shape[1]))[1]
+            t = dynamic_time_weights(T_len, T, I0.dtype)
+        t = t[:, None, None, None, None]  # [T, 1, 1, 1, 1]
         F_t_0 = (-(1 - t) * t * F_0_1 + t**2 * F_1_0).flatten(0, 1)  # [T*B, 2, H, W]
         F_t_1 = ((1 - t) * (1 - t) * F_0_1 - t * (1 - t) * F_1_0).flatten(0, 1)
         I0r = I0.expand(T, *I0.shape).flatten(0, 1)

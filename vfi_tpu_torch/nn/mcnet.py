@@ -1,5 +1,5 @@
 """MC-Net, the shared autoregressive video predictor (counterpart of
-``vfi_tpu/nn/mcnet.py``), static-shape path.
+``vfi_tpu/nn/mcnet.py``).
 
 The modules compute in NCHW.  :class:`MCNet` takes vfi_tpu's channels-last
 inputs and returns its rollout as NCHW tensors stacked over a leading T axis.
@@ -172,11 +172,17 @@ class MCNet(nn.Module):
         r3 = self._call(self.residual3, res_m[2], res_c[2])
         return RolloutStep(self._call(self.dec_cnn, h_tpl, r1, r2, r3), h_dyn, h_cont, r1, r2, r3)
 
-    def forward(self, T: int, diff_in: torch.Tensor, xt: torch.Tensor) -> RolloutStep:
+    def forward(self, T: int, diff_in: torch.Tensor, xt: torch.Tensor, warmup_skip=None) -> RolloutStep:
         """
         :param T: number of frames to predict
         :param diff_in: grayscale difference frames ``[B, K-1, H, W, 1]``
         :param xt: the content frame (last context frame) ``[B, H, W, C]``
+        :param warmup_skip: the dynamic-(K, T, F) path's count of *invalid*
+            leading warm-up steps, a tensor ``[B]`` or 0-d (broadcast over the
+            rows), where the preceding frames are right-aligned in a max_K
+            buffer (``ops/dynamic.py``).  A masked step leaves the ConvLSTM
+            state as it was, so the rollout equals the one after the shorter
+            warm-up; the last step, which seeds the rollout, is always valid.
         """
         B, Km1, H, W, _ = diff_in.shape
         xt = xt.permute(0, 3, 1, 2)
@@ -188,9 +194,16 @@ class MCNet(nn.Module):
         enc_all, res_all = self._call(self.motion_enc, flat)
         enc_all = enc_all.reshape(B, Km1, *enc_all.shape[1:])
         res_m = tuple(r.reshape(B, Km1, *r.shape[1:])[:, -1] for r in res_all)
+        if warmup_skip is not None:
+            warmup_skip = torch.as_tensor(warmup_skip, device=xt.device).reshape(-1, 1, 1, 1)
         h_dyn = None
         for t in range(Km1):
-            h_dyn, state = self.conv_lstm(enc_all[:, t], state)
+            h_dyn, new_state = self.conv_lstm(enc_all[:, t], state)
+            if warmup_skip is None:
+                state = new_state
+            else:
+                valid = (t >= warmup_skip).to(state.dtype)
+                state = valid * new_state + (1.0 - valid) * state
 
         steps = [self._predict(xt, h_dyn, res_m)]
         for _ in range(1, T):

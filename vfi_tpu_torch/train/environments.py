@@ -153,6 +153,11 @@ class BaseEnvironment:
     def _cast_params(self, module: nn.Module) -> Dict[str, torch.Tensor]:
         return self._compute_cast(dict(module.named_parameters()))
 
+    def _adam_step(self, module: nn.Module, opt: torch.optim.Adam, loss: torch.Tensor) -> None:
+        """``module``'s gradients of ``loss`` (averaged over the group), then one step of ``opt``."""
+        _set_grads(module, loss, self.group)
+        opt.step()
+
     @torch.inference_mode()
     def forward_test(self, T: int, preceding: torch.Tensor, following: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.model(T, preceding, following)
@@ -235,10 +240,12 @@ class L2GDLDiscEnvironment(BaseEnvironment):
         terms["G_loss"] = loss
         return loss, (out, terms)
 
-    def _g_forward(self, state: TrainState, T: int, p, m, f) -> Dict[str, torch.Tensor]:
+    def _g_forward(self, state: TrainState, T: int, p, m, f, lengths=None) -> Dict[str, torch.Tensor]:
         """The generator on its compute-dtype parameters (``m``, the ground
-        truth middle frames in float32, is there for teacher forcing)."""
-        return functional_call(state.generator, self._cast_params(state.generator), (T, p, f))
+        truth middle frames in float32, is there for teacher forcing;
+        ``lengths``, the dynamic step's, goes to the model where given)."""
+        kwargs = {} if lengths is None else {"lengths": lengths}
+        return functional_call(state.generator, self._cast_params(state.generator), (T, p, f), kwargs)
 
     # -- discriminator loss --------------------------------------------------
     def _d_loss(self, state: TrainState, pred: torch.Tensor, K: int, T: int, F: int, targets: torch.Tensor):
@@ -263,8 +270,7 @@ class L2GDLDiscEnvironment(BaseEnvironment):
     def _g_update(self, state: TrainState, K: int, T: int, F: int, targets: torch.Tensor) -> Tuple[torch.Tensor, Terms]:
         """One Adam step of the generator; returns its prediction (detached) and the G terms."""
         loss, (out, terms) = self._g_loss(state, K, T, F, targets)
-        _set_grads(state.generator, loss, self.group)
-        state.g_opt.step()
+        self._adam_step(state.generator, state.g_opt, loss)
         state.step += 1
         return out["pred"].detach(), {k: v.detach() for k, v in terms.items()}
 
@@ -272,8 +278,7 @@ class L2GDLDiscEnvironment(BaseEnvironment):
                   targets: torch.Tensor) -> Terms:
         """One Adam step of the discriminator on ``pred``; returns the D terms."""
         loss, terms = self._d_loss(state, pred, K, T, F, targets)
-        _set_grads(state.discriminator, loss, self.group)
-        state.d_opt.step()
+        self._adam_step(state.discriminator, state.d_opt, loss)
         return {k: v.detach().float() for k, v in terms.items()}
 
     def train_step(self, state: TrainState, K: int, T: int, F: int, targets) -> Tuple[TrainState, Terms]:
@@ -348,21 +353,29 @@ class SCTEnvironment(L2GDLDiscEnvironment):
         """One uniform draw from the state's rng against ``tf_rate(step)``."""
         return bool(torch.rand((), generator=state.rng) < self.tf_rate(state.step))
 
-    def _g_forward(self, state: TrainState, T: int, p, m, f) -> Dict[str, torch.Tensor]:
+    def _g_forward(self, state: TrainState, T: int, p, m, f, lengths=None) -> Dict[str, torch.Tensor]:
         gen = state.generator
-        kwargs = {}
+        kwargs = {} if lengths is None else {"lengths": lengths}
         forced = hasattr(gen, "forward_train") and self._teacher_forcing(state)
         if forced:
             (kwargs["gt_middle"],) = self._compute_cast((m,))
         if gen.random_order:
             kwargs["generator"] = state.rng
         out = functional_call(gen, self._cast_params(gen), (T, p, f), kwargs)
-        return {**out, "teacher_forced": torch.tensor(float(forced), device=p.device)}
+        return {**out, "teacher_forced": p.new_full((), float(forced), dtype=torch.float32)}
 
     def _g_loss(self, state: TrainState, K: int, T: int, F: int, targets: torch.Tensor):
         loss, (out, terms) = super()._g_loss(state, K, T, F, targets)
         terms["teacher_forced"] = out.pop("teacher_forced")
         return loss, (out, terms)
+
+
+def refuse_int8() -> None:
+    """Raises ``RuntimeError`` when ``VFI_INT8`` asks for vfi_tpu's int8
+    convs, which are inference-only (their rounding has a zero gradient)."""
+    if os.environ.get("VFI_INT8", "0") in ("1", "2"):
+        raise RuntimeError("VFI_INT8 is set but int8 convs are inference-only (zero gradients through the "
+                           "rounding); unset it for training")
 
 
 def create_training_environment(model: nn.Module, cfg, group=None) -> BaseEnvironment:
@@ -371,12 +384,9 @@ def create_training_environment(model: nn.Module, cfg, group=None) -> BaseEnviro
     in :class:`MCNetEnvironment`, the SCT family in :class:`SCTEnvironment`,
     Super SloMo in ``slomo_env.SloMoEnvironment``; any other model raises
     ``TypeError``.  With a process ``group`` (``parallel.Groups.device``),
-    every update averages its gradients over the group's ranks.
-    Raises ``RuntimeError`` when ``VFI_INT8`` asks for vfi_tpu's int8 convs,
-    which are inference-only (their rounding has a zero gradient)."""
-    if os.environ.get("VFI_INT8", "0") in ("1", "2"):
-        raise RuntimeError("VFI_INT8 is set but int8 convs are inference-only (zero gradients through the "
-                           "rounding); unset it for training")
+    every update averages its gradients over the group's ranks.  Refuses
+    ``VFI_INT8`` (:func:`refuse_int8`)."""
+    refuse_int8()
     if isinstance(model, (TAIFillInModel, BidirectionalSimpleAverageFillInModel,
                           BidirectionalTimeWeightedAverageFillInModel)):
         return TAIEnvironment(model, cfg, group)

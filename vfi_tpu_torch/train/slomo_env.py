@@ -32,6 +32,7 @@ from torch.func import functional_call
 
 from ..api import resolve_device
 from ..nn.vgg import try_load_vgg16
+from ..ops.dynamic import masked_mean
 from ..ops.image import inverse_transform
 from ..ops.warp import flow_warp
 from ..utils.params import params_from_jax
@@ -76,8 +77,10 @@ class SloMoEnvironment(BaseEnvironment):
         c = self.cfg
         return c.lr * c.lr_decay_rate ** (step // c.lr_decay_count)
 
-    def _perceptual(self, pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
-        """L2 between the VGG16 features of the predicted and the true middle frames."""
+    def _perceptual(self, pred: torch.Tensor, gt: torch.Tensor, tmask=None) -> torch.Tensor:
+        """L2 between the VGG16 features of the predicted and the true middle
+        frames ``[B, T, H, W, C]``; with a middle-frame mask ``[T]``, the mean
+        over the valid frames' features alone."""
         params = self._cast_params(self._vgg)
 
         def feats(v):
@@ -89,7 +92,9 @@ class SloMoEnvironment(BaseEnvironment):
 
         with torch.no_grad():  # no gradient reaches the ground truth
             want = feats(gt)
-        return l2_loss(feats(pred), want)
+        if tmask is None:
+            return l2_loss(feats(pred), want)
+        return masked_mean(((feats(pred) - want) ** 2).reshape(*pred.shape[:2], -1), tmask[None, :, None])
 
     def _g_loss(self, state: TrainState, K: int, T: int, F: int, targets: torch.Tensor):
         c = self.cfg
@@ -126,9 +131,12 @@ class SloMoEnvironment(BaseEnvironment):
         place; leaves each parameter's ``.grad`` at this step's gradient and
         returns the state and the loss terms (0-d float32 tensors on the device)."""
         targets = torch.as_tensor(targets, dtype=torch.float32, device=state.device)
+        return self._update(state, *self._g_loss(state, K, T, F, targets))
+
+    def _update(self, state: TrainState, loss: torch.Tensor, terms: Terms) -> Tuple[TrainState, Terms]:
+        """One Adam step on ``loss`` at ``learning_rate(state.step)``; the state and the detached terms."""
         for group in state.g_opt.param_groups:
             group["lr"] = self.learning_rate(state.step)
-        loss, terms = self._g_loss(state, K, T, F, targets)
         _set_grads(state.generator, loss, self.group)
         state.g_opt.step()
         state.step += 1
