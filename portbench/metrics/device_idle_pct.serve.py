@@ -1,0 +1,5 @@
+"""The share of the traced window in which no operation ran on the device, %."""
+
+
+def read(r):
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
